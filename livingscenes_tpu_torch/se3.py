@@ -1,0 +1,154 @@
+"""Batched SE(3) math: transforms, Kabsch and Horn rotation fits, errors.
+
+Counterpart of livingscenes_tpu/se3.py (the Lie maps are not ported yet).
+Conventions: points are right-multiplied by R^T; an SE(3) transform is a
+(B, 3 or 4, 4) matrix; `kabsch` returns R (B, 3, 3) and t (B, 3, 1).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def inverse(g: torch.Tensor) -> torch.Tensor:
+    """Inverse of (..., 3/4, 4) transforms, as (..., 3, 4)."""
+    rot_t = g[..., :3, :3].transpose(-1, -2)
+    t_inv = -torch.matmul(rot_t, g[..., :3, 3:])
+    return torch.cat([rot_t, t_inv], dim=-1)
+
+
+def transform(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 3/4, 4) transforms to points (..., N, 3)."""
+    return torch.matmul(a, g[..., :3, :3].transpose(-1, -2)) + g[..., None, :3, 3]
+
+
+def rt_to_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """R (B, 3, 3) and t (B, 3, 1) -> (B, 4, 4)."""
+    B = R.shape[0]
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    top = torch.cat([R, t.reshape(B, 3, 1)], dim=-1)
+    return torch.cat([top, bottom.expand(B, 1, 4)], dim=1)
+
+
+def rotation_from_covariance(cov: torch.Tensor) -> torch.Tensor:
+    """Proper rotation maximizing tr(R cov) from a (..., 3, 3) covariance:
+    SVD, with a reflection fixed through the sign of det(V U^T)."""
+    U, _, Vh = torch.linalg.svd(cov)
+    V = Vh.transpose(-1, -2)
+    Ut = U.transpose(-1, -2)
+    det = torch.linalg.det(torch.matmul(V, Ut))
+    ones = torch.ones_like(det)
+    diag = torch.stack([ones, ones, det], dim=-1)
+    return torch.matmul(V * diag[..., None, :], Ut)
+
+
+def quat_wxyz_from_matrix(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> unit quaternion (w, x, y, z): of Shepperd's four
+    candidates, the one with the largest diagonal term."""
+    R00, R01, R02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    R10, R11, R12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    R20, R21, R22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    t0 = 1.0 + R00 + R11 + R22
+    t1 = 1.0 + R00 - R11 - R22
+    t2 = 1.0 - R00 + R11 - R22
+    t3 = 1.0 - R00 - R11 + R22
+    t = torch.stack([t0, t1, t2, t3], dim=-1)
+    cand = torch.stack(
+        [
+            torch.stack([t0, R21 - R12, R02 - R20, R10 - R01], dim=-1),
+            torch.stack([R21 - R12, t1, R01 + R10, R02 + R20], dim=-1),
+            torch.stack([R02 - R20, R01 + R10, t2, R12 + R21], dim=-1),
+            torch.stack([R10 - R01, R02 + R20, R12 + R21, t3], dim=-1),
+        ],
+        dim=-2,
+    )
+    idx = torch.argmax(t, dim=-1)
+    q = torch.take_along_dim(cand, idx[..., None, None], dim=-2)[..., 0, :]
+    tmax = torch.take_along_dim(t, idx[..., None], dim=-1)
+    q = q / (2.0 * torch.sqrt(torch.clamp_min(tmax, 1e-12)))
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def matrix_from_quat_wxyz(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) -> rotation matrix."""
+    w, x, y, z = q.unbind(-1)
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                         2 * (x * z + w * y)], dim=-1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                         2 * (y * z - w * x)], dim=-1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                         1 - 2 * (x * x + y * y)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def rotation_from_covariance_horn(
+    cov: torch.Tensor, q0: torch.Tensor | None = None, iters: int = 8
+):
+    """Proper rotation maximizing tr(R cov) without an SVD: Horn's
+    quaternion eigenproblem, solved by `iters` power iterations on the
+    4x4 matrix shifted by 2 |cov|_F + 1e-12 (so the wanted eigenvalue is
+    the largest), warm-started from `q0` (w first). Returns (R, q)."""
+    Sxx, Sxy, Sxz = cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2]
+    Syx, Syy, Syz = cov[..., 1, 0], cov[..., 1, 1], cov[..., 1, 2]
+    Szx, Szy, Szz = cov[..., 2, 0], cov[..., 2, 1], cov[..., 2, 2]
+    N = torch.stack(
+        [
+            torch.stack([Sxx + Syy + Szz, Syz - Szy, Szx - Sxz, Sxy - Syx], -1),
+            torch.stack([Syz - Szy, Sxx - Syy - Szz, Sxy + Syx, Szx + Sxz], -1),
+            torch.stack([Szx - Sxz, Sxy + Syx, -Sxx + Syy - Szz, Syz + Szy], -1),
+            torch.stack([Sxy - Syx, Szx + Sxz, Syz + Szy, -Sxx - Syy + Szz], -1),
+        ],
+        dim=-2,
+    )
+    s = 2.0 * torch.sqrt(torch.sum(cov * cov, dim=(-2, -1))) + 1e-12
+    if q0 is None:
+        q = torch.zeros(cov.shape[:-2] + (4,), dtype=cov.dtype, device=cov.device)
+        q[..., 0] = 1.0
+    else:
+        q = q0
+    for _ in range(iters):
+        q = torch.matmul(N, q[..., None])[..., 0] + s[..., None] * q
+        q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    return matrix_from_quat_wxyz(q), q
+
+
+def transformation_residuals(x1, x2, R, t) -> torch.Tensor:
+    """Euclidean residuals of x2 ~ R x1 + t; (B, N)."""
+    x2_hat = torch.matmul(R, x1.transpose(-1, -2)) + t
+    return torch.linalg.norm(x2_hat.transpose(-1, -2) - x2, dim=-1)
+
+
+def kabsch(x1, x2, weights=None, normalize_w: bool = True, eps: float = 1e-7):
+    """Weighted Kabsch of corresponding (B, N, 3) sets, x2 ~ R x1 + t.
+
+    Returns R (B, 3, 3), t (B, 3, 1), res (B, N) pointwise residuals.
+    """
+    B, N, _ = x1.shape
+    if weights is None:
+        weights = torch.ones((B, N), dtype=x1.dtype, device=x1.device)
+    if normalize_w:
+        weights = weights / (torch.sum(weights, dim=1, keepdim=True) + eps)
+    w = weights[..., None]
+    denom = torch.sum(w, dim=1, keepdim=True) + eps
+    x1_mean = torch.sum(w * x1, dim=1, keepdim=True) / denom
+    x2_mean = torch.sum(w * x2, dim=1, keepdim=True) / denom
+    cov = torch.matmul((x1 - x1_mean).transpose(-1, -2), w * (x2 - x2_mean))
+    R = rotation_from_covariance(cov)
+    t = x2_mean.transpose(-1, -2) - torch.matmul(R, x1_mean.transpose(-1, -2))
+    return R, t, transformation_residuals(x1, x2, R, t)
+
+
+def rotation_error(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
+    """Geodesic rotation error in degrees; (B,)."""
+    R_ = torch.matmul(R1.transpose(-1, -2), R2)
+    trace = R_[..., 0, 0] + R_[..., 1, 1] + R_[..., 2, 2]
+    cos = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    return torch.rad2deg(torch.arccos(cos))
+
+
+def translation_error(t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
+    """Norm of the translation difference; (B,)."""
+    return torch.linalg.norm((t1 - t2).reshape(t1.shape[0], -1), dim=-1)
