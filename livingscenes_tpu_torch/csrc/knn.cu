@@ -22,48 +22,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "knn_select.cuh"
+
 namespace {
 
-constexpr int kK = 16;
+using namespace lstpu_select;
+
 constexpr int kQT = 64;    // queries per block
 constexpr int kPT = 64;    // source points per tile
 constexpr int kDC = 32;    // feature chunk
 constexpr int kThreads = 256;
 constexpr int kDistStride = kPT + 4;
-
-__device__ __forceinline__ bool before(float d, int i, float od, int oi) {
-  return d < od || (d == od && i < oi);
-}
-
-__device__ __forceinline__ void insert(float (&td)[kK], int (&ti)[kK], float d,
-                                       int i) {
-  if (!before(d, i, td[kK - 1], ti[kK - 1])) return;
-#pragma unroll
-  for (int m = 0; m < kK; ++m) {
-    if (before(d, i, td[m], ti[m])) {
-      const float t = td[m];
-      td[m] = d;
-      d = t;
-      const int u = ti[m];
-      ti[m] = i;
-      i = u;
-    }
-  }
-}
-
-// Merge the partner lane's list (lane ^ mask) into this lane's list.
-__device__ __forceinline__ void merge_partner(float (&td)[kK], int (&ti)[kK],
-                                              int mask) {
-  float od[kK];
-  int oi[kK];
-#pragma unroll
-  for (int m = 0; m < kK; ++m) {
-    od[m] = __shfl_xor_sync(0xffffffffu, td[m], mask);
-    oi[m] = __shfl_xor_sync(0xffffffffu, ti[m], mask);
-  }
-#pragma unroll
-  for (int m = 0; m < kK; ++m) insert(td, ti, od[m], oi[m]);
-}
 
 __global__ void __launch_bounds__(kThreads)
     knn_kernel(const float* __restrict__ q, const float* __restrict__ p,

@@ -20,6 +20,7 @@ from ..device import resolve_device
 from ..nn.vec_dgcnn_attn import VecDGCNNAttn
 from ..nn.vec_layers import VecLinear
 from ..ops.cuda_fps import fps_auto
+from ..ops.cuda_knn import knn_with_topk_scale
 
 Codes = Dict[str, torch.Tensor]
 
@@ -39,6 +40,11 @@ class ShapePriorConfig:
     num_knn: int = 16
     scale_factor: float = 64000.0
     n_pcl: int = 1024  # encoder input size
+    # The fused path (the JAX field's name): on the card the encoder's
+    # layers run as fused CUDA kernels and `encode` takes the scale and the
+    # layer-0 graph from one kernel; on the CPU the plain versions of the
+    # same functions run. The parameters do not depend on it.
+    pallas_attention: bool = False
 
 
 class ShapePrior(nn.Module):
@@ -66,6 +72,7 @@ class ShapePrior(nn.Module):
             atten_multi_head_c=c.atten_multi_head_c,
             num_knn=c.num_knn,
             scale_factor=c.scale_factor,
+            pallas_attention=c.pallas_attention,
         )
         gen = torch.Generator().manual_seed(seed)
         for module in self.modules():
@@ -100,9 +107,31 @@ class ShapePrior(nn.Module):
         return centered / scale0[:, None, None], centroid, scale0
 
     def encode(self, pc: torch.Tensor) -> Codes:
-        """Encode (B, N, 3) clouds into codes."""
-        normalized, centroid, scale0 = self.normalize_input(pc)
-        center, pred_scale, z_so3, z_inv = self.encoder(normalized)
+        """Encode (B, N, 3) clouds into codes.
+
+        With `pallas_attention`, clouds whose N the fused front end takes
+        (N a multiple of min(256, N), the JAX condition) get their scale and
+        their layer-0 graph from one pass over the centred cloud: dividing
+        by the scale does not change the order of the neighbours. For any
+        other N the CPU takes `normalize_input`; on the card that needs the
+        scale kernel, which is not ported yet."""
+        N = pc.shape[1]
+        if self.config.pallas_attention and N % min(256, N) == 0:
+            centroid = torch.mean(pc, dim=1)
+            centered = pc - centroid[:, None, :]
+            idx0, scale0 = knn_with_topk_scale(
+                centered.detach(), min(self.config.num_knn, N))
+            out = self.encoder(centered / scale0[:, None, None],
+                               first_knn_idx=idx0)
+        else:
+            if self.config.pallas_attention and pc.device.type != "cpu":
+                raise NotImplementedError(
+                    f"pallas_attention=True with N={N}, not a multiple of "
+                    "min(256, N), needs the scale kernel (kernel table row "
+                    "8), which is not ported yet")
+            normalized, centroid, scale0 = self.normalize_input(pc)
+            out = self.encoder(normalized)
+        center, pred_scale, z_so3, z_inv = out
         return {
             "z_so3": z_so3,
             "z_inv": z_inv,

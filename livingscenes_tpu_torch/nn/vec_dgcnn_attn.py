@@ -1,7 +1,6 @@
 """SIM(3)-equivariant VN-DGCNN encoder with vector attention.
 
-Counterpart of livingscenes_tpu/nn/vec_dgcnn_attn.py (`VecDGCNNAttn`), the
-branches that run without the fused attention kernels:
+Counterpart of livingscenes_tpu/nn/vec_dgcnn_attn.py (`VecDGCNNAttn`):
 
   layer 0     cross-product edge [cross(dst_dir, nn), nn - dst, dst],
               VecLNA(3 -> C), mean over the K neighbours
@@ -14,10 +13,16 @@ branches that run without the fused attention kernels:
 Every layer builds a kNN graph in feature space (ops/cuda_knn.py: the
 kernel on the card, its plain version on the CPU) and layers 2, 4 and 5
 downsample by FPS (ops/cuda_fps.py). Features are (B, N, C, 3).
+
+The message passing of each layer is one function of nn/cuda_layer0.py and
+nn/cuda_attention.py. With `pallas_attention=False` the encoder calls their
+plain versions on every device; with `pallas_attention=True` (the JAX
+field's name) it calls the wrappers, which launch the fused CUDA kernels
+for tensors on the card and take the same plain versions on the CPU. The
+parameters are the same either way.
 """
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
 import torch
@@ -25,8 +30,14 @@ from torch import nn
 
 from ..ops.cuda_fps import fps_auto
 from ..ops.cuda_knn import knn_auto
-from ..ops.knn import gather_neighbors
-from .edge_conv import fused_edge_kv, lna_weights
+from .cuda_attention import (
+    fused_edge_attention,
+    fused_edge_attention_plain,
+    fused_edge_mean,
+    fused_edge_mean_plain,
+)
+from .cuda_layer0 import fused_layer0_edge_mean, fused_layer0_edge_mean_plain
+from .edge_conv import lna_weights
 from .vec_layers import (
     VecLinear,
     VecLNA,
@@ -57,8 +68,10 @@ class VecDGCNNAttn(nn.Module):
         atten_multi_head_c: int = 16,
         num_knn: int = 16,
         scale_factor: float = 64000.0,
+        pallas_attention: bool = False,
     ):
         super().__init__()
+        self.pallas_attention = pallas_attention
         self.c_dim = c_dim
         self.num_layers = num_layers
         self.feat_dim = tuple(feat_dim)
@@ -68,7 +81,6 @@ class VecDGCNNAttn(nn.Module):
         self.num_knn = num_knn
         self.scale_factor = scale_factor
         act = leaky_relu(LEAK_NEG_SLOPE)
-        self.act = act
 
         V, Q, K, G = {}, {}, {}, {}
         for i in range(num_layers):
@@ -96,21 +108,19 @@ class VecDGCNNAttn(nn.Module):
         p = src_f.reshape(B, N_src, C * 3)
         return knn_auto(q, p, min(self.num_knn, N_src))[1]
 
-    @staticmethod
-    def _layer0_edge(src_f, dst_f, idx):
-        """[cross(dst_dir, nn), nn - dst, dst]: (B, N, K, 3, 3)."""
-        nn_f = gather_neighbors(src_f, idx)  # (B, N, K, 1, 3)
-        dst_pad = dst_f[:, :, None].expand_as(nn_f)
-        dst_dir = dst_f / torch.clamp_min(
-            torch.linalg.norm(dst_f, dim=-1, keepdim=True), 1e-12
-        )
-        crossed = torch.linalg.cross(dst_dir[:, :, None].expand_as(nn_f), nn_f, dim=-1)
-        return torch.cat([crossed, nn_f - dst_pad, dst_pad], dim=-2)
-
-    def forward(self, x: torch.Tensor):
-        """x (B, N, 3), centred and scaled. Returns (center (B, 1, 3),
-        scale (B,), z_so3 (B, C, 3), z_inv (B, C))."""
+    def forward(self, x: torch.Tensor, first_knn_idx: torch.Tensor | None = None):
+        """x (B, N, 3), centred and scaled. `first_knn_idx` is an optional
+        precomputed (B, N, K) layer-0 graph (the fused front end of
+        `ShapePrior.encode` builds it with the scale statistic). Returns
+        (center (B, 1, 3), scale (B,), z_so3 (B, C, 3), z_inv (B, C))."""
         B = x.shape[0]
+        if self.pallas_attention:
+            layer0, edge_mean, edge_attention = (
+                fused_layer0_edge_mean, fused_edge_mean, fused_edge_attention)
+        else:
+            layer0, edge_mean, edge_attention = (
+                fused_layer0_edge_mean_plain, fused_edge_mean_plain,
+                fused_edge_attention_plain)
         src_xyz, src_f = x, x[:, :, None, :]
         for i in range(self.num_layers):
             if i in self.down_sample:
@@ -119,36 +129,23 @@ class VecDGCNNAttn(nn.Module):
                 dst_f = src_f[torch.arange(B, device=x.device)[:, None], fidx]
             else:
                 dst_xyz, dst_f = src_xyz, src_f
-            idx = self._knn_idx(src_f, dst_f)
-
-            if i == 0:
-                edge = self._layer0_edge(src_f, dst_f, idx)
-                dst_f = torch.mean(self.V_list[str(i)](edge), dim=2)
-            elif i < self.atten_start_layer:
-                nn_f = gather_neighbors(src_f, idx)
-                dst_pad = dst_f[:, :, None].expand_as(nn_f)
-                edge = torch.cat([nn_f - dst_pad, dst_pad], dim=-2)
-                dst_f = torch.mean(self.V_list[str(i)](edge), dim=2)
+            if i == 0 and first_knn_idx is not None:
+                idx = first_knn_idx
             else:
-                nn_f = gather_neighbors(src_f, idx)
+                idx = self._knn_idx(src_f, dst_f)
+
+            W_V, D_V = lna_weights(self.V_list[str(i)])
+            if i == 0:
+                dst_f = layer0(src_xyz, idx, W_V, D_V, LEAK_NEG_SLOPE)
+            elif i < self.atten_start_layer:
+                dst_f = edge_mean(src_f, dst_f, idx, W_V, D_V, LEAK_NEG_SLOPE)
+            else:
                 W_K, D_K = lna_weights(self.K_list[str(i)])
-                W_V, D_V = lna_weights(self.V_list[str(i)])
-                k_feat, v_feat = fused_edge_kv(
-                    nn_f, dst_f, W_K, D_K, W_V, D_V, self.act
+                q_n = channel_equi_vec_normalize(self.Q_list[str(i)](dst_f))
+                dst_f = edge_attention(
+                    src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V,
+                    self.head_c, LEAK_NEG_SLOPE,
                 )
-                q_feat = self.Q_list[str(i)](dst_f)
-                k_n = channel_equi_vec_normalize(k_feat)  # (B, Nd, K, C, 3)
-                q_n = channel_equi_vec_normalize(q_feat)  # (B, Nd, C, 3)
-                qk = torch.sum(k_n * q_n[:, :, None], dim=-1)  # (B, Nd, K, C)
-                c_out = qk.shape[-1]
-                n_head = c_out // self.head_c
-                qk_h = qk.reshape(*qk.shape[:3], n_head, self.head_c)
-                attn = torch.sum(qk_h, dim=-1, keepdim=True) / math.sqrt(
-                    3 * self.head_c
-                )
-                attn = torch.softmax(attn, dim=2)  # over K
-                attn = attn.expand_as(qk_h).reshape(qk.shape)
-                dst_f = torch.sum(attn[..., None] * v_feat, dim=2)
 
             if i >= RES_GLOBAL_START_LAYER:
                 g = torch.mean(dst_f, dim=1, keepdim=True)

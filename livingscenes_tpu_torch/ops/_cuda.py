@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-Every source in `livingscenes_tpu_torch/csrc` is compiled by its own `nvcc`
-process, all started together, for `sm_90a`; the objects are linked into one
-shared library with a plain C interface under `livingscenes_tpu_torch/_build/`
-(listed in `.gitignore`). The library's name carries a hash of the sources
-and flags, so an edited source is rebuilt. Nothing here runs at import time:
-the CPU tests import every module without `nvcc`.
+Every `.cu` source in `livingscenes_tpu_torch/csrc` is compiled by its own
+`nvcc` process, all started together, for `sm_90a`; the objects are linked
+into one shared library with a plain C interface under
+`livingscenes_tpu_torch/_build/` (listed in `.gitignore`). The library's name
+carries a hash of every file under `csrc/` (the shared `.cuh` headers
+included) and of the flags, so an edited source or header is rebuilt.
+Nothing here runs at import time: the CPU tests import every module without
+`nvcc`.
 
 Each C entry launches on the stream it is given and returns
 `cudaGetLastError()`; `check` turns a non-zero code into an exception.
@@ -24,7 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fps.cu", "knn.cu", "icp_stats.cu")
+SOURCES = ("fps.cu", "knn.cu", "icp_stats.cu", "knn_topk.cu", "layer0.cu",
+           "mean_edge.cu", "attention.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 # FPS indices must equal the CPU's bit for bit: no fused multiply-add.
@@ -37,13 +40,21 @@ ptxas_report: str = ""
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "lstpu_fps": [_P, _P, _P, _I, _I, _I, _P],
     "lstpu_knn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "lstpu_icp_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "lstpu_knn_topk": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "lstpu_layer0_edge_mean": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "lstpu_edge_mean": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "lstpu_edge_attention": [_P] * 8 + [_I] * 7 + [_F, _P],
     "lstpu_fps_max_points": [],
     "lstpu_knn_max_k": [],
     "lstpu_icp_stats_block": [],
+    "lstpu_knn_topk_tile": [],
+    "lstpu_knn_topk_max_points": [],
+    "lstpu_knn_topk_max_top": [],
 }
 
 
@@ -62,19 +73,25 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        name = path.relative_to(CSRC).as_posix()
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update(path.read_bytes())
         h.update(" ".join(EXTRA.get(name, [])).encode())
     h.update(" ".join(ARCH + FLAGS).encode())
     return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    """Where the library of the present sources and flags is built."""
+    return BUILD_DIR / f"liblstpu_kernels_{_digest()}.so"
 
 
 def build() -> Path:
     """Compile the sources (in parallel) and link the library; returns its
     path. A library already built from the same sources is reused."""
     global build_seconds, ptxas_report
-    so = BUILD_DIR / f"liblstpu_kernels_{_digest()}.so"
+    so = library_path()
     if so.exists():
         return so
     t0 = time.perf_counter()
@@ -138,6 +155,18 @@ def stream_ptr(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def forbid_grad(name: str, rows: str, *tensors) -> None:
+    """Raise if autograd would record this call: the kernel has no backward
+    yet (`rows` names the backward kernels of the TPU kernel table)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward yet (kernel table "
+            f"{rows}); call it under torch.no_grad()"
+        )
 
 
 def require_cuda(name: str, *tensors, dtype=None) -> None:

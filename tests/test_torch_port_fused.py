@@ -1,0 +1,305 @@
+"""The PyTorch port's fused-encoder path (ShapePriorConfig(pallas_attention=
+True)) held against the JAX package on the CPU. The same numpy inputs, made
+from a seed, go into both sides.
+
+On the CPU the port's wrappers run their plain versions; the JAX functions
+that reach a Pallas kernel run it in interpret mode, as the JAX package's
+own tests do. Sizes are small (B = 2, N <= 128): interpret mode is slow.
+
+Tolerances:
+  * knn_with_topk_scale: indices equal, scale rtol 1e-5 (f32; the port
+    uses the squared-difference form, the Pallas kernel the expanded form,
+    which agree to rounding; on the lattice cloud both are exact).
+  * the three fused layer functions: rtol 2e-4, atol 2e-5, the bound the
+    JAX package holds its kernels to against their XLA branches
+    (tests/test_pallas_attention.py).
+  * whole encoder, f32: atol 1e-4 on z_so3 and z_inv, rtol 1e-4 on s and t;
+    f64 against the JAX parity path and between the port's two
+    configurations: rtol 1e-9 (rounding only; the graphs are identical).
+  * whole pipeline, f64, Kabsch ICP refit on both sides: matches0 equal,
+    R and t to 1e-6.
+"""
+import os
+import re
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from livingscenes_tpu.models import shape_prior as jsp
+from livingscenes_tpu.nn import pallas_attention as jpa
+from livingscenes_tpu.nn import pallas_layer0 as jl0
+from livingscenes_tpu.nn.vec_layers import (
+    channel_equi_vec_normalize as j_channel_normalize,
+)
+from livingscenes_tpu.ops import pallas_knn as jknn
+from livingscenes_tpu.solver import pipeline as jpipe
+from livingscenes_tpu.solver import registration as jreg
+from livingscenes_tpu_torch.models.convert import params_from_jax
+from livingscenes_tpu_torch.models.shape_prior import ShapePrior, ShapePriorConfig
+from livingscenes_tpu_torch.nn import cuda_attention, cuda_layer0
+from livingscenes_tpu_torch.ops import _cuda, cuda_knn
+from livingscenes_tpu_torch.solver.pipeline import (
+    PipelineConfig,
+    build_scene_pair_pipeline,
+)
+from livingscenes_tpu_torch.solver.registration import RegistrationConfig
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "livingscenes_tpu_torch")
+
+# A 4-layer narrow encoder: layer 0, one mean-edge layer, two attention
+# layers (the first downsamples), two 8-channel heads and up.
+NARROW = dict(c_dim=32, num_layers=4, feat_dim=(16, 16, 32, 32),
+              down_sample_layers=(2,), down_sample_factor=(2,),
+              atten_start_layer=2, atten_multi_head_c=8, num_knn=8, n_pcl=128)
+
+
+def f32(rng, *shape, scale=1.0):
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+def lattice_cloud(rng):
+    """A permuted, centred 4 x 4 x 4 lattice: every squared distance is
+    exact in f32 and most are tied."""
+    g = np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"), -1)
+    return (rng.permutation(g.reshape(-1, 3)) - 1.5).astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "N,k,tile,lattice",
+    [
+        (128, 16, 32, False),  # four row tiles: the per-tile tops are merged
+        (64, 8, 256, False),   # one tile (tile = min(256, N))
+        (64, 8, 16, True),     # exact ties: lower index first
+    ],
+)
+def test_knn_with_topk_scale_matches_pallas(N, k, tile, lattice):
+    rng = np.random.default_rng(10)
+    pc = f32(rng, 2, N, 3)
+    pc -= pc.mean(1, keepdims=True)
+    if lattice:
+        pc[0] = lattice_cloud(rng)
+    idx_j, scale_j = jknn.knn_with_topk_scale(
+        jnp.asarray(pc), k, tile=tile, interpret=True)
+    idx_t, scale_t = cuda_knn.knn_with_topk_scale(torch.from_numpy(pc), k)
+    assert idx_t.dtype == torch.int64 and idx_t.shape == (2, N, k)
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    np.testing.assert_allclose(scale_t.numpy(), np.asarray(scale_j), rtol=1e-5)
+    # a point is its own nearest neighbour
+    np.testing.assert_array_equal(idx_t[..., 0].numpy(), np.tile(np.arange(N), (2, 1)))
+
+
+@pytest.mark.parametrize("N,K,O", [(64, 8, 16), (128, 16, 32), (64, 16, 48)])
+def test_fused_layer0_edge_mean_matches_pallas(N, K, O):
+    rng = np.random.default_rng(11)
+    xyz = f32(rng, 2, N, 3)
+    idx = rng.integers(0, N, (2, N, K)).astype(np.int32)
+    W, D = f32(rng, O, 3, scale=0.5), f32(rng, O, O, scale=0.2)
+    want = jl0.fused_layer0_edge_mean(
+        *(jnp.asarray(a) for a in (xyz, idx, W, D)), interpret=True)
+    got = cuda_layer0.fused_layer0_edge_mean(
+        *(torch.from_numpy(a) for a in (xyz, idx, W, D)))
+    assert got.shape == (2, N, O, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize(
+    "Ns,Nd,C,O,K",
+    [(64, 64, 16, 16, 16), (64, 32, 16, 32, 8), (128, 32, 8, 48, 16)],
+)
+def test_fused_edge_mean_matches_pallas(Ns, Nd, C, O, K):
+    rng = np.random.default_rng(12)
+    src, dst = f32(rng, 2, Ns, C, 3), f32(rng, 2, Nd, C, 3)
+    idx = rng.integers(0, Ns, (2, Nd, K)).astype(np.int32)
+    W, D = f32(rng, O, 2 * C, scale=0.2), f32(rng, O, O, scale=0.2)
+    want = jpa.fused_edge_mean(
+        *(jnp.asarray(a) for a in (src, dst, idx, W, D)), interpret=True)
+    got = cuda_attention.fused_edge_mean(
+        *(torch.from_numpy(a) for a in (src, dst, idx, W, D)))
+    assert got.shape == (2, Nd, O, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize(
+    "Ns,Nd,C,O,K,head_c",
+    [
+        (64, 64, 16, 16, 16, 16),  # one head
+        (64, 32, 16, 48, 8, 16),   # three heads, downsampling, K < 16
+        (128, 32, 8, 32, 16, 8),   # four heads of 8 channels
+    ],
+)
+def test_fused_edge_attention_matches_pallas(Ns, Nd, C, O, K, head_c):
+    rng = np.random.default_rng(13)
+    src, dst = f32(rng, 2, Ns, C, 3), f32(rng, 2, Nd, C, 3)
+    idx = rng.integers(0, Ns, (2, Nd, K)).astype(np.int32)
+    q_n = np.array(j_channel_normalize(jnp.asarray(f32(rng, 2, Nd, O, 3))))
+    W_K, W_V = f32(rng, O, 2 * C, scale=0.2), f32(rng, O, 2 * C, scale=0.2)
+    D_K, D_V = f32(rng, O, O, scale=0.2), f32(rng, O, O, scale=0.2)
+    args = (src, dst, idx, q_n, W_K, D_K, W_V, D_V)
+    want = jpa.fused_edge_attention(
+        *(jnp.asarray(a) for a in args), head_c=head_c, interpret=True)
+    got = cuda_attention.fused_edge_attention(
+        *(torch.from_numpy(a) for a in args), head_c=head_c)
+    assert got.shape == (2, Nd, O, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-5)
+
+
+@pytest.fixture(scope="module")
+def narrow_params():
+    model = jsp.ShapePrior(jsp.ShapePriorConfig(**NARROW))
+    init = jax.jit(model.init_params, static_argnames="n_points")
+    return jax.tree.map(np.asarray, init(jax.random.PRNGKey(2), n_points=64))
+
+
+def port_model(params, dtype, fused=True):
+    m = ShapePrior(ShapePriorConfig(**NARROW, pallas_attention=fused),
+                   device="cpu", dtype=dtype)
+    m.load_state_dict(params_from_jax(params))
+    return m
+
+
+def clouds(seed, B=3, N=128):
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-0.5, 0.5, (B, N, 3)) * rng.uniform(0.3, 1.0, (B, 1, 3))
+    return pts + rng.uniform(-2, 2, (B, 1, 3))
+
+
+def jax_encode(params, pc, jdt, **cfg):
+    jm = jsp.ShapePrior(jsp.ShapePriorConfig(**NARROW, **cfg))
+    jp = jax.tree.map(lambda a: jnp.asarray(a, jdt), params)
+    return {k: np.asarray(v)
+            for k, v in jax.jit(jm.encode)(jp, jnp.asarray(pc, jdt)).items()}
+
+
+def port_encode(params, pc, dtype, fused=True):
+    with torch.no_grad():
+        out = port_model(params, dtype, fused).encode(torch.as_tensor(pc, dtype=dtype))
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def test_fused_encode_matches_jax_f32(narrow_params):
+    pc = clouds(20)
+    cj = jax_encode(narrow_params, pc, jnp.float32, pallas_attention=True)
+    ct = port_encode(narrow_params, pc, torch.float32)
+    np.testing.assert_allclose(ct["z_so3"], cj["z_so3"], atol=1e-4)
+    np.testing.assert_allclose(ct["z_inv"], cj["z_inv"], atol=1e-4)
+    np.testing.assert_allclose(ct["s"], cj["s"], rtol=1e-4)
+    np.testing.assert_allclose(ct["t"], cj["t"], rtol=1e-4, atol=1e-5)
+
+
+def test_fused_encode_matches_jax_parity_f64(narrow_params):
+    pc = clouds(21)
+    cj = jax_encode(narrow_params, pc, jnp.float64, pallas_attention=True, parity=True)
+    ct = port_encode(narrow_params, pc, torch.float64)
+    for k in ("z_so3", "z_inv", "s", "t"):
+        np.testing.assert_allclose(ct[k], cj[k], rtol=1e-9, atol=1e-12, err_msg=k)
+
+
+@pytest.mark.parametrize("N", [128, 100])  # 100: the plain front end on the CPU
+def test_port_configurations_agree_f64(narrow_params, N):
+    pc = clouds(22, N=N)
+    a = port_encode(narrow_params, pc, torch.float64, fused=True)
+    b = port_encode(narrow_params, pc, torch.float64, fused=False)
+    for k in ("z_so3", "z_inv", "s", "t"):
+        np.testing.assert_allclose(a[k], b[k], rtol=1e-9, atol=1e-12, err_msg=k)
+
+
+def test_fused_pipeline_matches_jax_f64(narrow_params):
+    S, O, N = 2, 3, 192
+    rng = np.random.default_rng(23)
+    ref = clouds(24, B=S * O, N=N).reshape(S, O, N, 3)
+    rescan = ref[:, ::-1] + 0.1 * rng.normal(size=(S, O, 1, 3))
+    mask = np.ones((S, O, N), bool)
+    mask[:, :, 160:] = rng.random((S, O, N - 160)) > 0.5
+    jm = jsp.ShapePrior(jsp.ShapePriorConfig(**NARROW, pallas_attention=True, parity=True))
+    jcfg = jpipe.PipelineConfig(
+        encode_fps=True,
+        registration=jreg.RegistrationConfig(icp_iterations=10, icp_fused=False))
+    jp = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), narrow_params)
+    out_j = jpipe.build_scene_pair_pipeline(jm, jcfg)(
+        jp, *(jnp.asarray(a) for a in (ref, rescan, mask, mask)))
+    cfg = PipelineConfig(encode_fps=True, registration=RegistrationConfig(
+        icp_iterations=10, icp_fused=False))
+    out_t = build_scene_pair_pipeline(
+        port_model(narrow_params, torch.float64), cfg)(ref, rescan, mask, mask)
+    np.testing.assert_array_equal(out_t["matches0"].numpy(), np.asarray(out_j["matches0"]))
+    np.testing.assert_allclose(out_t["R"].numpy(), np.asarray(out_j["R"]), atol=1e-6)
+    np.testing.assert_allclose(out_t["t"].numpy(), np.asarray(out_j["t"]), atol=1e-6)
+
+
+def test_same_state_dict_loads_under_both_configurations(narrow_params):
+    state = params_from_jax(narrow_params)
+    keys = []
+    for fused in (False, True):
+        m = ShapePrior(ShapePriorConfig(**NARROW, pallas_attention=fused), device="cpu")
+        m.load_state_dict(state, strict=True)
+        keys.append(sorted(m.state_dict()))
+    assert keys[0] == keys[1] == sorted(state)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors_and_grad():
+    x = torch.zeros((1, 8, 3))
+    f = torch.zeros((1, 8, 4, 3))
+    idx = torch.zeros((1, 8, 2), dtype=torch.int32)
+    W, D = torch.zeros((4, 8)), torch.zeros((4, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_knn.knn_with_topk_scale_cuda(x, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_layer0.fused_layer0_edge_mean_cuda(x, idx, torch.zeros((4, 3)), D)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_attention.fused_edge_mean_cuda(f, f, idx, W, D)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_attention.fused_edge_attention_cuda(f, f, idx, f, W, D, W, D, 4)
+    # the kernels have no backward yet: a call autograd would record raises
+    w = torch.zeros((4, 8), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="row 13"):
+        _cuda.forbid_grad("edge_mean", "row 13", f, w)
+    with torch.no_grad():
+        _cuda.forbid_grad("edge_mean", "row 13", f, w)
+    _cuda.forbid_grad("edge_mean", "row 13", f, W)
+
+
+def test_fused_front_end_condition(narrow_params):
+    """N a multiple of min(256, N) takes the fused front end; any other N
+    takes normalize_input on the CPU and raises off the CPU (the scale
+    kernel is not ported)."""
+    m = port_model(narrow_params, torch.float32)
+    with torch.no_grad():
+        assert m.encode(torch.from_numpy(clouds(25, N=300)).float())["s"].shape == (3,)
+    with pytest.raises(NotImplementedError, match="row 8"):
+        m.encode(torch.empty((2, 300, 3), device="meta"))
+
+
+def test_port_sources_import_no_jax():
+    pattern = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|livingscenes_tpu)\b(?!_)", re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, names in os.walk(PORT):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    assert len(files) >= 20
+    for path in files:
+        with open(path) as f:
+            assert not pattern.search(f.read()), path
+    for name in ("nn/cuda_layer0.py", "nn/cuda_attention.py", "csrc/knn_topk.cu",
+                 "csrc/layer0.cu", "csrc/mean_edge.cu", "csrc/attention.cu",
+                 "csrc/edge_common.cuh"):
+        assert os.path.exists(os.path.join(PORT, name)), name
+
+
+def test_kernel_library_name_follows_every_source_and_header(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC, csrc)
+    monkeypatch.setattr(_cuda, "CSRC", csrc)
+    assert sorted(p.name for p in csrc.glob("*.cu")) == sorted(_cuda.SOURCES)
+    before = _cuda.library_path()
+    assert before == _cuda.library_path()
+    header = csrc / "edge_common.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after_header = _cuda.library_path()
+    assert after_header.name != before.name
+    source = csrc / "attention.cu"
+    source.write_bytes(source.read_bytes() + b"\n")
+    assert _cuda.library_path().name not in (before.name, after_header.name)
