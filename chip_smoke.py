@@ -6,7 +6,7 @@
 1. Requires a CUDA device (exits non-zero otherwise) and prints the card's
    name and power limit; TF32 is switched off for matmuls and cuDNN.
 2. Builds the CUDA kernels from livingscenes_tpu_torch/csrc with nvcc.
-3. Holds each of the seven kernels against its plain PyTorch version on
+3. Holds each of the eleven kernels against its plain PyTorch version on
    the card at the shapes the scene-pair pipeline gives it, and times the
    kernel, the plain version, one PyTorch library call where one computes
    the same function, and the least time the card could take (the bound).
@@ -22,8 +22,21 @@
    version ran, times it, and reruns scenes 0-1 on the CPU with the plain
    versions to compare. Then runs the default-config pipeline
    (pallas_attention=False) on the same scenes with the same checks and
-   fewer timed calls, and holds the two configurations against each other.
-5. Prints a `kernels` JSON line, the card line, and as its last line
+   one timed call, and holds the two configurations against each other.
+5. The scale kernel: against its plain version at 64 x 1000 points (one
+   cloud a lattice full of exact ties), then one encode of 64 x 1000 points
+   with pallas_attention=True (N no multiple of 256: the scale kernel and
+   the encoder's own layer-0 kNN) against the CPU on the first 16 clouds.
+6. The refinement path, PipelineConfig(optim=True) on 8 scenes x 8 objects x
+   1024 points with the fused encoder, the 8 x 768 decoder and the trained
+   checkpoint: a warm-up call of 3 steps, whose first Sinkhorn inputs (the
+   moved sources and their targets) the three Sinkhorn kernels are then
+   held against their plain versions on (forward, iterates, and the
+   backward against autograd of the plain forward); one timed call at
+   n_steps=400 with the launch counts checked (801 Sinkhorn forwards, 800
+   backwards) and every plain version forbidden; stage times; scene 0 at
+   n_steps=10 against the CPU.
+7. Prints a `kernels` JSON line, the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero.
@@ -45,6 +58,9 @@ CKPT = os.path.join(ROOT, "weights", "production_r5_selected.ckpt")
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# Exponentials: 132 SMs x 16 special-function lanes x 1.98 GHz boost clock,
+# one ex2 per lane and clock (Hopper architecture white paper).
+PEAK_EXP = 132 * 16 * 1.98e9
 
 N_SCENES = 8
 N_OBJ = 8
@@ -52,6 +68,10 @@ N_FULL = 4096
 N_PCL = 1024
 B = N_SCENES * N_OBJ  # instances per encoder call
 ICP_ITERS = 100
+N_RAGGED = 1000  # a cloud size that is no multiple of 256
+REFINE_STEPS = 400
+REFINE_WARMUP_STEPS = 3
+REFINE_CPU_STEPS = 10  # steps of the card-against-CPU refinement check
 # (Nq, Np, C_in) of the kNN graph of encoder layers 0-6; D = 3 C_in.
 KNN_LAYERS = [(1024, 1024, 1), (1024, 1024, 32), (512, 1024, 32),
               (512, 512, 64), (128, 512, 64), (32, 128, 128), (32, 32, 256)]
@@ -104,8 +124,11 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float, exps: float = 0.0):
+    """The least ms the card could take: the larger of the bytes over the
+    memory rate and the operations over their peak rate, where operations
+    are f32 flops or, if they take longer, exponentials."""
+    t_ops = max(flops / PEAK_F32_FLOPS, exps / PEAK_EXP) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -557,13 +580,15 @@ def phase_fused_layers(torch, report, calls):
 
 
 def phase_small_shapes(torch, report):
-    """Rows 4-7 against their plain versions at shapes the main path never
+    """Rows 4-11 against their plain versions at shapes the main path never
     gives them: K < 16, point counts and widths that fill no whole tile,
-    N_dst != N_src, one head and many, and the largest cloud the kNN +
-    scale kernel takes. Random inputs from a seed; checked, not timed."""
+    N_dst != N_src, one head and many, the largest cloud the kNN + scale
+    and scale kernels take, Sinkhorn clouds with N != M that fill no whole
+    warp. Random inputs from a seed; checked, not timed."""
     from livingscenes_tpu_torch.nn import cuda_attention, cuda_layer0
     from livingscenes_tpu_torch.nn.vec_layers import channel_equi_vec_normalize
-    from livingscenes_tpu_torch.ops import cuda_knn
+    from livingscenes_tpu_torch.ops import cuda_knn, cuda_scale, cuda_sinkhorn
+    from livingscenes_tpu_torch.ops.sinkhorn import eps_annealing_schedule
 
     rng = np.random.default_rng(5)
 
@@ -614,6 +639,40 @@ def phase_small_shapes(torch, report):
             check_close(name, cuda_attention.fused_edge_attention_cuda(*args),
                         cuda_attention.fused_edge_attention_plain(*args))
             done.append(name)
+        for n, k in ((7, 5), (37, 5), (333, 8), (4096, 5)):
+            pc = f32(2, n, 3)
+            name = f"scale small N={n} k={k}"
+            torch.testing.assert_close(
+                cuda_scale.top_k_mean_pairwise_distance_cuda(pc, k),
+                cuda_scale.top_k_mean_pairwise_distance_plain(pc, k),
+                rtol=1e-6, atol=0, msg=lambda m, name=name: f"{name}: {m}")
+            done.append(name)
+    for n, m, schedule in ((50, 50, eps_annealing_schedule(0.05)),
+                           (70, 33, eps_annealing_schedule(0.1)),
+                           (20, 45, [0.01] * 5), (1500, 700, [0.02] * 3)):
+        x, y = f32(2, n, 3, scale=0.3), f32(2, m, 3, scale=0.3) + 0.1
+        name = f"sinkhorn small N={n} M={m} S={len(schedule)}"
+        with torch.no_grad():
+            got = cuda_sinkhorn.extrapolated_forward_cuda(x, y, schedule)
+            want = cuda_sinkhorn.ot_extrapolated_potentials_plain(x, y, schedule)
+            want += cuda_sinkhorn.sinkhorn_iterates_plain(x, y, schedule)
+            got += cuda_sinkhorn.sinkhorn_iterates_cuda(x, y, schedule)
+        for g, w in zip(got, want + want[2:]):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5,
+                                       msg=lambda m, name=name: f"{name}: {m}")
+        done.append(name)
+        for cf, cg in ((f32(2, n), f32(2, m)), (f32(2, n), None), (None, f32(2, m))):
+            dx, dy = cuda_sinkhorn.extrapolated_backward_cuda(
+                x, y, *got[:4], cf, cg, schedule[-1])
+            xv, yv = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+            f, g = cuda_sinkhorn.ot_extrapolated_potentials_plain(xv, yv, schedule)
+            total = sum(torch.sum(c * p) for c, p in ((cf, f), (cg, g)) if c is not None)
+            wx, wy = torch.autograd.grad(total, (xv, yv))
+            for got_d, want_d in ((dx, wx), (dy, wy)):
+                torch.testing.assert_close(
+                    got_d, want_d, rtol=1e-4, atol=1e-4 * float(want_d.abs().max()),
+                    msg=lambda m, name=name: f"{name} backward: {m}")
+        done.append(name + " backward x3")
     torch.cuda.synchronize()
     log(f"small shapes: {len(done)} checks ok (" + "; ".join(done) + ")")
     report["small_shapes"] = done
@@ -622,14 +681,29 @@ def phase_small_shapes(torch, report):
 def counters():
     """name -> (module, attribute) of every kernel wrapper's launch count."""
     from livingscenes_tpu_torch.nn import cuda_attention, cuda_layer0
-    from livingscenes_tpu_torch.ops import cuda_fps, cuda_icp, cuda_knn
+    from livingscenes_tpu_torch.ops import (
+        cuda_fps, cuda_icp, cuda_knn, cuda_scale, cuda_sinkhorn)
 
     return {"fps": (cuda_fps, "launches"), "knn": (cuda_knn, "launches"),
             "icp_stats": (cuda_icp, "launches"),
             "knn_topk": (cuda_knn, "topk_launches"),
             "layer0": (cuda_layer0, "launches"),
             "edge_mean": (cuda_attention, "mean_launches"),
-            "edge_attention": (cuda_attention, "attention_launches")}
+            "edge_attention": (cuda_attention, "attention_launches"),
+            "scale": (cuda_scale, "launches"),
+            "sinkhorn": (cuda_sinkhorn, "launches"),
+            "sinkhorn_bwd": (cuda_sinkhorn, "bwd_launches"),
+            "sinkhorn_iterates": (cuda_sinkhorn, "iterates_launches")}
+
+
+def counted(fn):
+    """Run fn() between setting every launch count to 0 and reading them:
+    (fn's result, name -> launches)."""
+    count = counters()
+    for mod, attr in count.values():
+        setattr(mod, attr, 0)
+    out = fn()
+    return out, {k: getattr(mod, attr) for k, (mod, attr) in count.items()}
 
 
 class forbid_plain:
@@ -638,7 +712,8 @@ class forbid_plain:
 
     def __enter__(self):
         from livingscenes_tpu_torch.nn import cuda_attention, cuda_layer0
-        from livingscenes_tpu_torch.ops import cuda_fps, cuda_icp, cuda_knn
+        from livingscenes_tpu_torch.ops import (
+            cuda_fps, cuda_icp, cuda_knn, cuda_scale, cuda_sinkhorn, sinkhorn)
 
         self.saved = []
         for mod, name in (
@@ -647,7 +722,11 @@ class forbid_plain:
                 (cuda_knn, "knn_with_topk_scale_plain"),
                 (cuda_layer0, "fused_layer0_edge_mean_plain"),
                 (cuda_attention, "fused_edge_mean_plain"),
-                (cuda_attention, "fused_edge_attention_plain")):
+                (cuda_attention, "fused_edge_attention_plain"),
+                (cuda_scale, "top_k_mean_pairwise_distance_plain"),
+                (cuda_sinkhorn, "ot_extrapolated_potentials_plain"),
+                (cuda_sinkhorn, "sinkhorn_iterates_plain"),
+                (sinkhorn, "_sym_potentials")):
             self.saved.append((mod, name, getattr(mod, name)))
 
             def refuse(*a, _name=name, **k):
@@ -685,17 +764,18 @@ def run_config(torch, state, scenes, fused: bool, want: dict, n_timed: int,
     pipe(ref, res, mask, mask)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    count = counters()
-    for mod, attr in count.values():
-        setattr(mod, attr, 0)
-    if fused:
-        with forbid_plain():
-            out = pipe(ref, res, mask, mask)
-            torch.cuda.synchronize()
-    else:
+
+    def one_call():
         out = pipe(ref, res, mask, mask)
         torch.cuda.synchronize()
-    launches = {k: getattr(mod, attr) for k, (mod, attr) in count.items()}
+        return out
+
+    if fused:
+        with forbid_plain():
+            out, launches = counted(one_call)
+    else:
+        out, launches = counted(one_call)
+    launches = {k: v for k, v in launches.items() if v or k in want}
     log(f"{tag}: pipeline launches {launches}")
     if launches != want:
         raise AssertionError(f"{tag}: launch counts {launches}, expected {want}")
@@ -771,7 +851,7 @@ def phase_pipeline(torch, report, state, scenes, profile: bool):
     plain_want = {"fps": 8, "knn": 2 * len(KNN_LAYERS), "icp_stats": ICP_ITERS,
                   **{k: 0 for k in per_encode}}
     fused, out_f = run_config(torch, state, scenes, True, fused_want, 11, profile)
-    plain, out_p = run_config(torch, state, scenes, False, plain_want, 3, profile)
+    plain, out_p = run_config(torch, state, scenes, False, plain_want, 1, profile)
     if not torch.equal(out_f["matches0"], out_p["matches0"]):
         raise AssertionError("the two configurations disagree on matches0")
     dR = float((out_f["R"] - out_p["R"]).abs().max())
@@ -784,6 +864,454 @@ def phase_pipeline(torch, report, state, scenes, profile: bool):
     report["pipeline_default_config"] = plain
     report["config_check"] = {"max_abs_dR": dR, "max_abs_dt": dt}
     return fused["launches"]
+
+
+def phase_scale(torch, report, state, pc):
+    """Row 8: the scale kernel against its plain version on centred clouds
+    of N_RAGGED points (pc, the first N_RAGGED points of each FPS-sampled
+    instance; cloud 1 is replaced by a permuted 10 x 10 x 10 lattice, whose
+    squared distances are exact in f32 and whose largest ones tie many
+    times), then one encode of the same clouds through the fused
+    configuration, counted, against the CPU on the first 16 clouds."""
+    from livingscenes_tpu_torch.models.shape_prior import (
+        ShapePrior, ShapePriorConfig)
+    from livingscenes_tpu_torch.ops import cuda_scale
+    from livingscenes_tpu_torch.solver.matcher import sequential_matcher
+    from livingscenes_tpu_torch.solver.registration import kabsch_from_codes
+
+    Bn, n, _ = pc.shape
+    rng = np.random.default_rng(6)
+    lattice = np.stack(np.meshgrid(*[np.arange(10)] * 3, indexing="ij"),
+                       -1).reshape(-1, 3)
+    assert lattice.shape[0] == n
+    centred = pc - pc.mean(dim=1, keepdim=True)
+    centred[1] = torch.as_tensor(
+        (rng.permutation(lattice) - 4.5).astype(np.float32), device="cuda")
+    got = cuda_scale.top_k_mean_pairwise_distance_cuda(centred, 5)
+    want = cuda_scale.top_k_mean_pairwise_distance_plain(centred, 5)
+    torch.cuda.synchronize()
+    rel = float(((got - want).abs() / want).max())
+    if not rel <= 1e-6 or float(got[1]) != float(want[1]):
+        raise AssertionError(f"scale: differs by {rel} rel; lattice "
+                             f"{float(got[1])} vs {float(want[1])}")
+    ms = cuda_ms(torch, lambda: cuda_scale.top_k_mean_pairwise_distance_cuda(centred, 5), 20)
+    plain = cuda_ms(
+        torch, lambda: cuda_scale.top_k_mean_pairwise_distance_plain(centred, 5), 5)
+    lib = cuda_ms(torch, lambda: torch.topk(
+        torch.cdist(centred, centred).reshape(Bn, -1), 5, dim=-1), 5)
+    # the matrix is symmetric: the statistic needs only the n (n - 1) / 2
+    # distinct distances, each 8 flops and one compare
+    bms, by = bound_ms(9.0 * Bn * n * (n - 1) / 2, 12.0 * Bn * n + 4.0 * Bn)
+    log(f"scale {Bn}x{n}x3: ok (rel err {rel:.2g}, lattice equal); kernel "
+        f"{ms:.4f} ms, plain {plain:.3f} ms, cdist+topk {lib:.3f} ms, bound "
+        f"{bms:.4f} ms ({by})")
+
+    # the entry point that needs it: encode at a cloud size the fused front
+    # end does not take
+    cfg = ShapePriorConfig(pallas_attention=True)
+    model = ShapePrior(cfg, device="cuda")
+    model.load_state_dict(state)
+    with torch.inference_mode(), forbid_plain():
+        codes, launches = counted(lambda: model.encode(pc))
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in launches.items() if v}
+    want_launches = {"scale": 1, "knn": len(KNN_LAYERS), "fps": len(FPS_ENCODER),
+                     "layer0": 1, "edge_mean": 1,
+                     "edge_attention": len(KNN_LAYERS) - 2}
+    log(f"encode {Bn}x{n}, pallas_attention=True: launches {launches}")
+    if launches != want_launches:
+        raise AssertionError(f"encode at N={n}: launches {launches}, expected "
+                             f"{want_launches}")
+    cpu_model = ShapePrior(cfg, device="cpu")
+    cpu_model.load_state_dict(state)
+    n_cpu = 16
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cpu_codes = cpu_model.encode(pc[:n_cpu].cpu())
+    cpu_s = time.perf_counter() - t0
+    card_codes = {k: v[:n_cpu].cpu() for k, v in codes.items()}
+    diffs = {}
+    for key, val in codes.items():
+        if not bool(torch.isfinite(val).all()):
+            raise AssertionError(f"encode at N={n}: non-finite {key}")
+        ref = cpu_codes[key]
+        diffs[key] = float((card_codes[key] - ref).abs().max() / ref.abs().max())
+    # The codes as their consumers read them. On most clouds the card and
+    # the CPU agree to 1e-4, but in about one cloud in sixteen, at any N and
+    # in either configuration, a neighbour or a sampled point that ties
+    # within rounding is picked differently (phase_knn counts such swaps) and
+    # the codes turn by up to 1e-2; ICP later pulls such a pair together
+    # (the pipeline's card-against-CPU check holds R to 1e-3). So: each card
+    # code matches its own CPU code, the rotation between the two is the
+    # identity within 1e-4 in the median and 5e-2 at worst, the scales agree
+    # to 1 %.
+    Rc, _, _ = kabsch_from_codes(card_codes, cpu_codes)
+    dR = (Rc - torch.eye(3)).abs().amax(dim=(1, 2))
+    matched = sequential_matcher(card_codes["z_inv"][None],
+                                 cpu_codes["z_inv"][None])["matches0"][0]
+    worst, median = float(dR.max()), float(dR.median())
+    log(f"encode {Bn}x{n}: card vs cpu on clouds 0-{n_cpu - 1}: rotation between "
+        f"the codes max|R - I| median {median:.3g}, worst {worst:.3g}, "
+        f"{int((dR > 1e-3).sum())} clouds above 1e-3; max |diff| over max |value|: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+        + f" (cpu run {cpu_s:.1f} s)")
+    if (matched.tolist() != list(range(n_cpu)) or median > 1e-4 or worst > 5e-2
+            or diffs["s"] > 1e-2):
+        raise AssertionError(f"encode at N={n}: card and CPU codes differ: matches "
+                             f"{matched.tolist()}, dR {dR.tolist()}, {diffs}")
+    diffs.update(median_abs_dR=median, max_abs_dR=worst)
+    report["scale"] = {
+        "shape": [Bn, n, 3], "launches": launches["scale"], "ms": ms,
+        "plain_ms": plain, "library_ms": lib, "bound_ms": bms, "bound_by": by,
+        "max_abs_err": float((got - want).abs().max()),
+        "encode_cpu_check": diffs,
+    }
+
+
+def sinkhorn_work(Bn, n, m, steps, n_exp_matrices):
+    """(flops, bytes, exps) that a pass over `steps` log-sum-exp pairs (or
+    one backward pass that needs `n_exp_matrices` matrices of weights) over
+    Bn pairs of n x m needs: the cost entry once (8 flops), then 5 flops and
+    one exponential per entry and reduction."""
+    entries = float(Bn) * n * m
+    if steps:
+        return (entries * (8 + 2 * steps * 5), 4.0 * Bn * (n + m) * (3 + 2),
+                entries * 2 * steps)
+    # backward: per weight an exponential and 4 flops, then the 2 x 4
+    # weighted sums (8 multiply-adds) per entry
+    return (entries * (8 + 4 * n_exp_matrices + 16),
+            4.0 * Bn * (n + m) * (3 + 3 + 3), entries * n_exp_matrices)
+
+
+def phase_sinkhorn(torch, report, x, y, schedule):
+    """Rows 9-11 at the refinement's shapes: x the moved sources and y the
+    targets (Bn, 1024, 3) of the first refine step. Forward and iterates
+    against the plain version (rtol and atol 1e-5); the backward against
+    autograd of the plain forward in f64, with the loss's own cotangents
+    (1 / N) and with random ones, both potentials and f alone. Its
+    tolerance, rtol 2e-3 plus 1e-3 of the largest entry, is 2.5 times the
+    f32 rounding of the cost, which both sides share: the clouds lie up to 5
+    from the origin, so |x|^2/2 + |y|^2/2 - x.y is right to about 1e-6,
+    which over eps = 0.0025 moves a softmax weight by 4e-4 of itself, in the
+    saved potentials and again in the backward. The f32 plain version's own
+    error against the same f64 gradient is logged beside the kernel's."""
+    from livingscenes_tpu_torch.ops import cuda_sinkhorn as cs
+
+    Bn, n, _ = x.shape
+    m = y.shape[1]
+    S = len(schedule)
+    rng = np.random.default_rng(7)
+
+    def close(name, got, want, rtol, atol):
+        err = (got - want).abs()
+        if not bool(got.isfinite().all()) or bool((err > atol + rtol * want.abs()).any()):
+            raise AssertionError(f"{name}: max err {float(err.max()):.3g} against "
+                                 f"max |want| {float(want.abs().max()):.3g}")
+        return float(err.max())
+
+    with torch.no_grad():
+        got = cs.extrapolated_forward_cuda(x, y, schedule)
+        want = cs.ot_extrapolated_potentials_plain(x, y, schedule)
+        want += cs.sinkhorn_iterates_plain(x, y, schedule)
+        it = cs.sinkhorn_iterates_cuda(x, y, schedule)
+        torch.cuda.synchronize()
+        err_fwd = max(close(f"sinkhorn {k}", g, w, 1e-5, 1e-5)
+                      for k, g, w in zip(("f_out", "g_out", "f_it", "g_it"), got, want))
+        err_it = max(close(f"sinkhorn_iterates {k}", g, w, 1e-5, 1e-5)
+                     for k, g, w in zip(("f", "g"), it, want[2:]))
+
+    def plain_grad(cf, cg, dtype=torch.float32):
+        xv = x.to(dtype).requires_grad_(True)
+        yv = y.to(dtype).requires_grad_(True)
+        f, g = cs.ot_extrapolated_potentials_plain(xv, yv, schedule)
+        total = sum(torch.sum(c.to(dtype) * p) for c, p in ((cf, f), (cg, g))
+                    if c is not None)
+        return torch.autograd.grad(total, (xv, yv))
+
+    mean_f = torch.full((Bn, n), 1.0 / n, device="cuda")
+    mean_g = torch.full((Bn, m), 1.0 / m, device="cuda")
+    rand_f = torch.as_tensor(rng.normal(size=(Bn, n)).astype(np.float32), device="cuda")
+    rand_g = torch.as_tensor(rng.normal(size=(Bn, m)).astype(np.float32), device="cuda")
+    err_bwd, rel_bwd, rel_plain = 0.0, 0.0, 0.0
+    for name, cf, cg in (("mean", mean_f, mean_g), ("random", rand_f, rand_g),
+                         ("f only", mean_f, None), ("g only", None, rand_g)):
+        dx, dy = cs.extrapolated_backward_cuda(x, y, *got, cf, cg, schedule[-1])
+        wx, wy = plain_grad(cf, cg, torch.float64)
+        px, py = plain_grad(cf, cg)
+        torch.cuda.synchronize()
+        for label, g, w, pl in (("dx", dx, wx, px), ("dy", dy, wy, py)):
+            top = float(w.abs().max())
+            err = close(f"sinkhorn_bwd {name} {label}", g.double(), w, 2e-3, 1e-3 * top)
+            err_bwd = max(err_bwd, err)
+            rel_bwd = max(rel_bwd, err / top)
+            rel_plain = max(rel_plain, float((pl.double() - w).abs().max()) / top)
+        del wx, wy, px, py
+    # through autograd, as the divergence calls it: the self term of a cloud
+    # uses f alone and the cloud is both arguments, so its gradient is dx + dy
+    xv = x.clone().requires_grad_(True)
+    f_xx, _ = cs.ot_extrapolated_potentials(xv, xv, schedule)
+    (g_kernel,) = torch.autograd.grad(torch.sum(f_xx) / n, xv)
+    xw = x.double().requires_grad_(True)
+    f_pl, _ = cs.ot_extrapolated_potentials_plain(xw, xw, schedule)
+    (g_plain,) = torch.autograd.grad(torch.sum(f_pl) / n, xw)
+    err_bwd = max(err_bwd, close("sinkhorn_bwd self term", g_kernel.double(), g_plain,
+                                 2e-3, 1e-3 * float(g_plain.abs().max())))
+    del g_plain, f_pl
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(torch, lambda: cs.extrapolated_forward_cuda(x, y, schedule), 10)
+        it_ms = cuda_ms(torch, lambda: cs.sinkhorn_iterates_cuda(x, y, schedule), 10)
+        bwd2_ms = cuda_ms(torch, lambda: cs.extrapolated_backward_cuda(
+            x, y, *got, mean_f, mean_g, schedule[-1]), 10)
+        bwd1_ms = cuda_ms(torch, lambda: cs.extrapolated_backward_cuda(
+            x, y, *got, mean_f, None, schedule[-1]), 10)
+        fwd_plain = cuda_ms(torch, lambda: cs.ot_extrapolated_potentials_plain(
+            x, y, schedule), 3, 1)
+        it_plain = cuda_ms(torch, lambda: cs.sinkhorn_iterates_plain(x, y, schedule), 3, 1)
+    bwd2_plain = cuda_ms(torch, lambda: plain_grad(mean_f, mean_g), 3, 1) - fwd_plain
+    bwd1_plain = cuda_ms(torch, lambda: plain_grad(mean_f, None), 3, 1) - fwd_plain
+    fwd_b, fwd_by = bound_ms(*sinkhorn_work(Bn, n, m, S + 1, 0))
+    it_b, it_by = bound_ms(*sinkhorn_work(Bn, n, m, S, 0))
+    bwd2_b, bwd_by = bound_ms(*sinkhorn_work(Bn, n, m, 0, 2))
+    bwd1_b, _ = bound_ms(*sinkhorn_work(Bn, n, m, 0, 1))
+    log(f"sinkhorn {Bn}x{n}x{m}, {S} temperatures: forward ok (max err "
+        f"{err_fwd:.3g}); kernel {fwd_ms:.3f} ms, plain {fwd_plain:.3f} ms, bound "
+        f"{fwd_b:.4f} ms ({fwd_by}, the exponentials)")
+    log(f"sinkhorn_iterates: ok (max err {err_it:.3g}); kernel {it_ms:.3f} ms, "
+        f"plain {it_plain:.3f} ms, bound {it_b:.4f} ms ({it_by})")
+    log(f"sinkhorn_bwd: ok against the f64 gradient (max err {err_bwd:.3g}, "
+        f"{rel_bwd:.2g} of the largest entry; the f32 plain version {rel_plain:.2g}); "
+        f"both cotangents: kernel "
+        f"{bwd2_ms:.3f} ms, plain autograd {bwd2_plain:.3f} ms, bound {bwd2_b:.4f} "
+        f"ms; f alone: kernel {bwd1_ms:.3f} ms, plain {bwd1_plain:.3f} ms, bound "
+        f"{bwd1_b:.4f} ms ({bwd_by})")
+    # row 11 has no caller on the pipeline: its entry point is driven once
+    # here, counted
+    _, launches = counted(lambda: cs.sinkhorn_iterates(x, y, schedule))
+    torch.cuda.synchronize()
+    per_launch = {
+        "sinkhorn": {"ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": fwd_b},
+        "sinkhorn_bwd_both": {"ms": bwd2_ms, "plain_ms": bwd2_plain, "bound_ms": bwd2_b},
+        "sinkhorn_bwd_f_only": {"ms": bwd1_ms, "plain_ms": bwd1_plain, "bound_ms": bwd1_b},
+        "sinkhorn_iterates": {"ms": it_ms, "plain_ms": it_plain, "bound_ms": it_b},
+    }
+    report["sinkhorn_per_launch"] = per_launch
+    report["sinkhorn_iterates"] = {
+        "shape": [Bn, n, m, S], "launches": launches["sinkhorn_iterates"],
+        **per_launch["sinkhorn_iterates"], "bound_by": it_by,
+        "max_abs_err": err_it, "library_ms": None}
+    return per_launch, {"sinkhorn": err_fwd, "sinkhorn_bwd": err_bwd}, (fwd_by, bwd_by)
+
+
+def phase_optim(torch, report, state, profile: bool):
+    """The refinement path at full width: PipelineConfig(optim=True) on 8
+    scenes x 8 objects x 1024 points (no FPS front end), the fused encoder
+    and the 8 x 768 decoder with the trained weights."""
+    from livingscenes_tpu_torch.models.shape_prior import (
+        ShapePrior, ShapePriorConfig)
+    from livingscenes_tpu_torch.ops import sinkhorn
+    from livingscenes_tpu_torch.solver.matcher import sequential_matcher
+    from livingscenes_tpu_torch.solver.pipeline import (
+        PipelineConfig, build_scene_pair_pipeline)
+    from livingscenes_tpu_torch.solver.registration import (
+        RegistrationConfig, solve_pairwise_registration)
+
+    tag = "optim"
+    cfg = ShapePriorConfig(pallas_attention=True)
+    model = ShapePrior(cfg, device="cuda")
+    model.load_state_dict(state)
+    ref_np, res_np = make_scenes(np.random.default_rng(0), n_pts=N_PCL)
+    ref, res = (torch.as_tensor(a, device="cuda") for a in (ref_np, res_np))
+
+    def pipeline(m, n_steps, **reg):
+        return build_scene_pair_pipeline(m, PipelineConfig(
+            optim=True, registration=RegistrationConfig(n_steps=n_steps, **reg)))
+
+    # warm-up, which also records the first step's Sinkhorn inputs
+    seen = []
+    real = sinkhorn.ot_extrapolated_potentials
+
+    def recorder(x, y, schedule):
+        if x is not y and not seen:
+            seen.append((x.detach().clone(), y.detach().clone(), tuple(schedule)))
+        return real(x, y, schedule)
+
+    sinkhorn.ot_extrapolated_potentials = recorder
+    try:
+        pipeline(model, REFINE_WARMUP_STEPS)(ref, res)
+    finally:
+        sinkhorn.ot_extrapolated_potentials = real
+    torch.cuda.synchronize()
+    x, y, schedule = seen[0]
+    log(f"{tag}: Sinkhorn schedule of the refinement: {len(schedule)} temperatures "
+        f"{schedule[0]:.4g} .. {schedule[-1]:.4g}")
+    per_launch, errs, (fwd_by, bwd_by) = phase_sinkhorn(torch, report, x, y, schedule)
+    del x, y, seen
+
+    # the timed call
+    torch.cuda.reset_peak_memory_stats()
+    pipe = pipeline(model, REFINE_STEPS)
+
+    def one_call():
+        t0 = time.perf_counter()
+        out = pipe(ref, res)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with forbid_plain():
+        (out, call_ms), launches = counted(one_call)
+    launches = {k: v for k, v in launches.items() if v}
+    n_enc = len(KNN_LAYERS)
+    want = {"fps": 2 * len(FPS_ENCODER), "knn": 2 * (n_enc - 1),
+            "icp_stats": ICP_ITERS, "knn_topk": 2, "layer0": 2, "edge_mean": 2,
+            "edge_attention": 2 * (n_enc - 2),
+            "sinkhorn": 1 + 2 * REFINE_STEPS, "sinkhorn_bwd": 2 * REFINE_STEPS}
+    log(f"{tag}: pipeline launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{tag}: launch counts {launches}, expected {want}")
+    R, t, m0 = out["R"], out["t"], out["matches0"]
+    if not (bool(torch.isfinite(R).all()) and bool(torch.isfinite(t).all())):
+        raise AssertionError(f"{tag}: non-finite R or t")
+    for s in range(N_SCENES):
+        if sorted(m0[s].tolist()) != list(range(N_OBJ)):
+            raise AssertionError(f"{tag}: scene {s}: matches0 {m0[s].tolist()} "
+                                 "is not a permutation")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{tag}: pipeline {N_SCENES}x{N_OBJ}x{N_PCL}, n_steps={REFINE_STEPS}: "
+        f"{call_ms:.1f} ms the call, {N_SCENES / (call_ms / 1e3):.4f} scene-pairs/s, "
+        f"peak memory {peak_gb:.2f} GB")
+
+    # stage times: host clock, each ended by a sync
+    S, O = N_SCENES, N_OBJ
+    flat_ref, flat_res = ref.reshape(S * O, N_PCL, 3), res.reshape(S * O, N_PCL, 3)
+    stages = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    with torch.no_grad():
+        codes = timed("encode", lambda: (model.encode(flat_ref), model.encode(flat_res)))
+        m = timed("match", lambda: sequential_matcher(
+            codes[0]["z_inv"].reshape(S, O, -1),
+            codes[1]["z_inv"].reshape(S, O, -1))["matches0"])
+        part = (m.clamp_min(0) + torch.arange(S, device=m.device)[:, None] * O).reshape(-1)
+        pc2 = flat_res[part]
+        c2 = {k: v[part] for k, v in codes[1].items()}
+        timed("refine", lambda: solve_pairwise_registration(
+            model, flat_ref, pc2, codes[0], c2, optim=True,
+            cfg=RegistrationConfig(n_steps=REFINE_STEPS, icp_iterations=0)))
+        timed("icp", lambda: solve_pairwise_registration(
+            model, flat_ref, pc2, codes[0], c2, cfg=RegistrationConfig()))
+    stages["refine_ms_per_step"] = stages["refine"] / REFINE_STEPS
+    log(f"{tag}: stages (ms, host clock with sync; refine = direction pick + "
+        f"{REFINE_STEPS} steps, no ICP): " + json.dumps(stages))
+    result = {"scenes": S, "objects": O, "points": N_PCL, "n_steps": REFINE_STEPS,
+              "ms_per_call": call_ms, "scene_pairs_per_s": S / (call_ms / 1e3),
+              "launches": launches, "stages_ms": stages, "peak_mem_gb": peak_gb}
+
+    if profile:
+        from torch.profiler import ProfilerActivity
+
+        n_prof = 20
+        reg = RegistrationConfig(n_steps=n_prof, icp_iterations=0)
+        with torch.no_grad():
+            solve_pairwise_registration(model, flat_ref, pc2, codes[0], c2, optim=True, cfg=reg)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(
+                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                solve_pairwise_registration(
+                    model, flat_ref, pc2, codes[0], c2, optim=True, cfg=reg)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        st = kernel_summary(torch, prof, wall)
+        result["profile_refine"] = {"n_steps": n_prof, **st}
+        log(f"{tag}: profile of {n_prof} refine steps: wall {wall:.1f} ms, device "
+            f"{st['device_ms']:.1f} ms ({st['busy']:.1%} busy), {st['kernels']} kernel "
+            "launches; top: "
+            + "; ".join(f"{k} {ms:.2f} ms x{c}" for k, ms, c in st["top"][:8]))
+
+    # scene 0 at a few steps, card against CPU through the plain versions
+    cpu_model = ShapePrior(cfg, device="cpu")
+    cpu_model.load_state_dict(state)
+    checks = {}
+    for name, reg in (("refine only", dict(icp_iterations=0)), ("refine + icp", {})):
+        card = pipeline(model, REFINE_CPU_STEPS, **reg)(ref[:1], res[:1])
+        t0 = time.perf_counter()
+        cpu = pipeline(cpu_model, REFINE_CPU_STEPS, **reg)(ref_np[:1], res_np[:1])
+        cpu_s = time.perf_counter() - t0
+        if not torch.equal(card["matches0"].cpu(), cpu["matches0"]):
+            raise AssertionError(f"{tag}: matches0 differs between card and CPU")
+        dR = float((card["R"].cpu() - cpu["R"]).abs().max())
+        dt = float((card["t"].cpu() - cpu["t"]).abs().max())
+        checks[name] = {"max_abs_dR": dR, "max_abs_dt": dt}
+        log(f"{tag}: card vs cpu on scene 0, n_steps={REFINE_CPU_STEPS}, {name}: "
+            f"matches0 equal, max|dR| {dR:.3g}, max|dt| {dt:.3g} (cpu run {cpu_s:.1f} s)")
+        # f32 rounding carried through Adam steps, whose normalized update
+        # amplifies it: 1e-4 measured after the refinement alone, 4.9e-4
+        # after ICP as well (NVIDIA H100 80GB HBM3); the bound is four times
+        # the larger
+        if dR > 2e-3:
+            raise AssertionError(f"{tag}: {name}: R differs from the CPU run by {dR}")
+    # does the direction pick ever differ between card and CPU?
+    with torch.no_grad():
+        flips = 0
+        picks = []
+        for mdl, dev in ((model, "cuda"), (cpu_model, "cpu")):
+            a = torch.as_tensor(ref_np[0], device=dev)
+            b = torch.as_tensor(res_np[0], device=dev)
+            ca, cb = mdl.encode(a), mdl.encode(b)
+            mm = sequential_matcher(ca["z_inv"][None], cb["z_inv"][None])["matches0"][0]
+            cb = {k: v[mm.clamp_min(0)] for k, v in cb.items()}
+            e1 = mdl.decode_sdf(a, ca).abs().mean(-1)
+            e2 = mdl.decode_sdf(b[mm.clamp_min(0)], cb).abs().mean(-1)
+            picks.append(((e1 >= e2).cpu(), (e1 - e2).cpu()))
+        flips = int((picks[0][0] != picks[1][0]).sum())
+        margin = float(picks[1][1].abs().min())
+    log(f"{tag}: direction pick on scene 0: {picks[0][0].tolist()} on the card, "
+        f"{flips} of {N_OBJ} differ from the CPU (smallest |err1 - err2| {margin:.3g})")
+    result["cpu_check"] = {**checks, "steps": REFINE_CPU_STEPS,
+                           "direction_pick_flips": flips,
+                           "direction_pick_margin": margin}
+    report["pipeline_optim"] = result
+
+    n_fwd, n_bwd = launches["sinkhorn"], launches["sinkhorn_bwd"]
+    fwd = per_launch["sinkhorn"]
+    report["sinkhorn"] = {
+        "launches": n_fwd, "bound_by": fwd_by, "max_abs_err": errs["sinkhorn"],
+        "library_ms": None, **{k: n_fwd * v for k, v in fwd.items()}}
+    # each step runs one backward with both cotangents (xy) and one with f
+    # alone (xx)
+    both, f_only = per_launch["sinkhorn_bwd_both"], per_launch["sinkhorn_bwd_f_only"]
+    report["sinkhorn_bwd"] = {
+        "launches": n_bwd, "bound_by": bwd_by, "max_abs_err": errs["sinkhorn_bwd"],
+        "library_ms": None,
+        **{k: n_bwd / 2 * (both[k] + f_only[k]) for k in both}}
+
+
+def kernel_summary(torch, prof, wall_ms: float) -> dict:
+    """What a finished torch.profiler run saw on the card during `wall_ms`
+    of host time: the device ms its kernels took, the busy share, the count
+    of kernel launches, and the kernels that took the most device time.
+    Kernel events only: the CPU op that launched a kernel also reports its
+    time, which would count it twice."""
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    rows = sorted(((k[:60], ms, n) for k, (ms, n) in by_name.items()),
+                  key=lambda row: -row[1])
+    dev = sum(row[1] for row in rows)
+    return {"wall_ms": wall_ms, "device_ms": dev,
+            "busy": dev / wall_ms if wall_ms else 0.0,
+            "kernels": sum(row[2] for row in rows), "top": rows[:12]}
 
 
 def stage_times(torch, model, ref, res, mask, profile=False):
@@ -814,20 +1342,7 @@ def stage_times(torch, model, ref, res, mask, profile=False):
             out[name] = wall
             return r
         prof.stop()
-        # kernel events only: the CPU op that launched a kernel also
-        # reports its time, which would count it twice
-        by_name = {}
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-        rows = sorted(((k[:60], ms, n) for k, (ms, n) in by_name.items()),
-                      key=lambda row: -row[1])
-        dev = sum(row[1] for row in rows)
-        out[name] = {"wall_ms": wall, "device_ms": dev,
-                     "busy": dev / wall if wall else 0.0,
-                     "kernels": sum(row[2] for row in rows), "top": rows[:12]}
+        out[name] = kernel_summary(torch, prof, wall)
         return r
 
     with torch.inference_mode():
@@ -883,7 +1398,8 @@ def main() -> int:
     from livingscenes_tpu_torch.models.shape_prior import ShapePrior
     from livingscenes_tpu_torch.ops.cuda_fps import fps_auto
 
-    report = {"card": card, "device": torch.cuda.get_device_name(0)}
+    report = {"card": card, "device": torch.cuda.get_device_name(0),
+              "build": {"nvcc_seconds": _cuda.build_seconds, "ptxas": ptxas}}
     phase_fps(torch, report)
     phase_knn(torch, report)
     phase_icp(torch, report)
@@ -901,6 +1417,8 @@ def main() -> int:
     del model
     phase_small_shapes(torch, report)
     launches = phase_pipeline(torch, report, state, scenes, args.profile)
+    phase_scale(torch, report, state, pc[:, :N_RAGGED].contiguous())
+    phase_optim(torch, report, state, args.profile)
 
     sources = {
         "fps": ("livingscenes_tpu_torch/csrc/fps.cu",
@@ -917,6 +1435,14 @@ def main() -> int:
                       "livingscenes_tpu/nn/pallas_attention.py:229"),
         "edge_attention": ("livingscenes_tpu_torch/csrc/attention.cu",
                            "livingscenes_tpu/nn/pallas_attention.py:135"),
+        "scale": ("livingscenes_tpu_torch/csrc/scale.cu",
+                  "livingscenes_tpu/ops/pallas_scale.py:31"),
+        "sinkhorn": ("livingscenes_tpu_torch/csrc/sinkhorn.cu",
+                     "livingscenes_tpu/ops/pallas_sinkhorn.py:119"),
+        "sinkhorn_bwd": ("livingscenes_tpu_torch/csrc/sinkhorn.cu",
+                         "livingscenes_tpu/ops/pallas_sinkhorn.py:149"),
+        "sinkhorn_iterates": ("livingscenes_tpu_torch/csrc/sinkhorn.cu",
+                              "livingscenes_tpu/ops/pallas_sinkhorn.py:48"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -925,11 +1451,16 @@ def main() -> int:
         r = {**r, **r.get("fused_path", {})}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            # rows 1-7: the fused-encoder pipeline's count; the later rows
+            # carry the count of the path that runs them
+            "replaces": replaces, "launches": r.get("launches", launches.get(name)),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels that their path never launched: {idle}")
     report["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

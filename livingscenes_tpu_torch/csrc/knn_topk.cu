@@ -18,35 +18,22 @@
 // owns 64 query rows, four lanes scan a row's columns in ascending order,
 // each keeping a sorted top-16 (distance, index) and the largest kTop
 // distances in registers. The four lists of a row merge exactly by two
-// shuffle exchanges; the largest-distance lists merge over the warp by a
-// butterfly, then over the eight warps through shared memory.
+// shuffle exchanges; the largest-distance lists merge over the block
+// (top_multiset.cuh, shared with scale.cu).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "knn_select.cuh"
+#include "top_multiset.cuh"
 
 namespace {
 
 using namespace lstpu_select;
+using namespace lstpu_top;
 
 constexpr int kQT = 64;     // query rows per block
 constexpr int kThreads = 256;
-constexpr int kTop = 8;     // largest distances kept per block
 constexpr int kMaxPoints = 4096;  // 3 planes of floats: 48 KB, opted into below
-
-// Keep the kTop largest values, descending; equal values are separate
-// entries, so the list is a multiset.
-__device__ __forceinline__ void insert_top(float (&top)[kTop], float d) {
-  if (!(d > top[kTop - 1])) return;
-#pragma unroll
-  for (int m = 0; m < kTop; ++m) {
-    if (d > top[m]) {
-      const float t = top[m];
-      top[m] = d;
-      d = t;
-    }
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
     knn_topk_kernel(const float* __restrict__ pts, int32_t* __restrict__ out_i,
@@ -104,26 +91,8 @@ __global__ void __launch_bounds__(kThreads)
       if (m < k) oi[m] = ti[m];
   }
 
-  // The lanes' lists hold disjoint entries, so a butterfly merge over the
-  // warp counts every entry once.
-#pragma unroll
-  for (int mask = 1; mask < 32; mask <<= 1) {
-    float other[kTop];
-#pragma unroll
-    for (int m = 0; m < kTop; ++m)
-      other[m] = __shfl_xor_sync(0xffffffffu, top[m], mask);
-#pragma unroll
-    for (int m = 0; m < kTop; ++m) insert_top(top, other[m]);
-  }
-  if ((tid & 31) == 0) {
-#pragma unroll
-    for (int m = 0; m < kTop; ++m) warp_top[tid >> 5][m] = top[m];
-  }
-  __syncthreads();
+  block_merge_top<kThreads>(top, warp_top);
   if (tid == 0) {
-    for (int w = 1; w < kThreads / 32; ++w)
-#pragma unroll
-      for (int m = 0; m < kTop; ++m) insert_top(top, warp_top[w][m]);
     float* o = tops + ((size_t)b * gridDim.x + blockIdx.x) * k_top;
 #pragma unroll
     for (int m = 0; m < kTop; ++m)

@@ -3,9 +3,10 @@
 `load_flax_checkpoint` reads a flax msgpack checkpoint (weights/*.ckpt) with
 the standard library and numpy alone, and `params_from_jax` maps the flax
 parameter tree onto the port's state-dict keys (those of the reference
-model, as livingscenes_tpu/models/convert.py:177 exports them).
-
-Only the encoder is ported so far; the decoder's entries are left out.
+model, as livingscenes_tpu/models/convert.py:177 exports them, for the
+encoder; "decoder.lin.<i>.{v,g,b}" and, for a plain dense layer,
+"decoder.lin.<i>.{kernel,bias}" for the DeepSDF decoder, whose matrices keep
+the flax (in, out) orientation).
 """
 from __future__ import annotations
 
@@ -129,9 +130,10 @@ def load_flax_checkpoint(path: str) -> Dict:
 
 
 def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
-    """Map the flax tree {"encoder": {...}, ...} to the port's state dict
-    (keys "encoder.V_list.0.lin.weight", ...). VecLinear weights keep the
-    torch (out, in) orientation, so no tensor is transposed."""
+    """Map the flax tree {"encoder": {...}, "decoder": {...}} to the port's
+    state dict (keys "encoder.V_list.0.lin.weight", "decoder.lin.0.v", ...).
+    No tensor is transposed: VecLinear weights are stored (out, in) on both
+    sides and the decoder's matrices (in, out) on both sides."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -150,4 +152,9 @@ def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
         out[".".join(["encoder", key] + rest)] = torch.from_numpy(np.array(node))
 
     walk(params["encoder"], [])
+    for name, layer in params["decoder"].items():
+        if not (name.startswith("lin") and name[3:].isdigit()):
+            raise ValueError(f"unexpected decoder entry {name!r}")
+        for leaf, value in layer.items():
+            out[f"decoder.lin.{name[3:]}.{leaf}"] = torch.from_numpy(np.array(value))
     return out

@@ -1,8 +1,11 @@
-"""The shape prior's encode surface: SIM(3) pre-normalization, the encoder,
-and code transport.
+"""The shape prior: SIM(3) pre-normalization, the equivariant encoder, the
+invariant SDF field, and code transport.
 
 Counterpart of livingscenes_tpu/models/shape_prior.py (`ShapePriorConfig`,
-`ShapePrior.normalize_input`, `encode`, `encode_fps`, `transform_codes`).
+`ShapePrior.normalize_input`, `encode`, `encode_fps`, `invariant_query`,
+`decode_sdf`, `occupancy_logits`, `transform_codes`), without the
+positional-encoding tail of the query and without reduced-precision decoder
+matmuls.
 Codes are the dict {"z_so3": (B, C, 3), "z_inv": (B, C), "s": (B,),
 "t": (B, 1, 3)}. Two behaviours of the reference stay: a cloud of identical
 points gives NaN codes (its scale statistic is 0), and `t` is
@@ -17,17 +20,22 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..nn.deepsdf import DeepSDFDecoder, Dense, WNDense
 from ..nn.vec_dgcnn_attn import VecDGCNNAttn
 from ..nn.vec_layers import VecLinear
 from ..ops.cuda_fps import fps_auto
 from ..ops.cuda_knn import knn_with_topk_scale
+from ..ops.cuda_scale import (
+    top_k_mean_pairwise_distance,
+    top_k_mean_pairwise_distance_plain,
+)
 
 Codes = Dict[str, torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
 class ShapePriorConfig:
-    """The encoder's production hyperparameters
+    """The production hyperparameters of encoder and decoder
     (configs/3rscan/dgcnn_attn_inner.yaml)."""
 
     c_dim: int = 256
@@ -39,16 +47,21 @@ class ShapePriorConfig:
     atten_multi_head_c: int = 16
     num_knn: int = 16
     scale_factor: float = 64000.0
+    decoder_dims: tuple = (768,) * 8
+    decoder_dropout_prob: float = 0.2
+    decoder_latent_in: tuple = (4,)
+    sdf2occ_factor: float = -1.0
     n_pcl: int = 1024  # encoder input size
     # The fused path (the JAX field's name): on the card the encoder's
-    # layers run as fused CUDA kernels and `encode` takes the scale and the
-    # layer-0 graph from one kernel; on the CPU the plain versions of the
-    # same functions run. The parameters do not depend on it.
+    # layers run as fused CUDA kernels and `encode` takes the scale (and,
+    # for N a multiple of min(256, N), the layer-0 graph) from a kernel; on
+    # the CPU the plain versions of the same functions run. The parameters
+    # do not depend on it.
     pallas_attention: bool = False
 
 
 class ShapePrior(nn.Module):
-    """The encoder with its parameters, on one device.
+    """Encoder and decoder with their parameters, on one device.
 
     `device` defaults to the card and raises without one; pass
     `device="cpu"` to run on the CPU. Weights start uniform in
@@ -74,10 +87,18 @@ class ShapePrior(nn.Module):
             scale_factor=c.scale_factor,
             pallas_attention=c.pallas_attention,
         )
+        self.decoder = DeepSDFDecoder(
+            latent_size=c.c_dim,
+            dims=c.decoder_dims,
+            dropout_prob=c.decoder_dropout_prob,
+            latent_in=c.decoder_latent_in,
+            pe_dim=c.c_dim + 1,
+        )
         gen = torch.Generator().manual_seed(seed)
         for module in self.modules():
-            if isinstance(module, VecLinear):
+            if isinstance(module, (VecLinear, WNDense, Dense)):
                 module.reset_parameters(gen)
+        self.eval()
         self.to(device=device, dtype=dtype)
 
     @property
@@ -92,18 +113,15 @@ class ShapePrior(nn.Module):
         """Centre each (B, N, 3) cloud and divide by the mean of the five
         largest entries of its full N x N distance matrix (symmetric
         duplicates included). Returns (normalized, centroid (B, 3),
-        scale0 (B,))."""
+        scale0 (B,)). With `pallas_attention` the statistic comes from
+        ops/cuda_scale.py (the scale kernel on the card) and carries no
+        gradient."""
         centroid = torch.mean(pc, dim=1)
         centered = pc - centroid[:, None, :]
-        B = pc.shape[0]
-        cx, cy, cz = centered.unbind(-1)
-        dx = cx[:, :, None] - cx[:, None, :]
-        dy = cy[:, :, None] - cy[:, None, :]
-        dz = cz[:, :, None] - cz[:, None, :]
-        d2 = (dx * dx + dy * dy) + dz * dz
-        # sqrt is monotone: the top five of d2 are the top five of d.
-        top5 = torch.topk(d2.reshape(B, -1), 5, dim=-1).values
-        scale0 = torch.mean(torch.sqrt(torch.clamp_min(top5, 0.0)), dim=-1)
+        if self.config.pallas_attention:
+            scale0 = top_k_mean_pairwise_distance(centered, 5)
+        else:
+            scale0 = top_k_mean_pairwise_distance_plain(centered, 5)
         return centered / scale0[:, None, None], centroid, scale0
 
     def encode(self, pc: torch.Tensor) -> Codes:
@@ -112,9 +130,9 @@ class ShapePrior(nn.Module):
         With `pallas_attention`, clouds whose N the fused front end takes
         (N a multiple of min(256, N), the JAX condition) get their scale and
         their layer-0 graph from one pass over the centred cloud: dividing
-        by the scale does not change the order of the neighbours. For any
-        other N the CPU takes `normalize_input`; on the card that needs the
-        scale kernel, which is not ported yet."""
+        by the scale does not change the order of the neighbours. Any
+        other N goes through `normalize_input` (the scale kernel on the
+        card) and the encoder's own layer-0 kNN."""
         N = pc.shape[1]
         if self.config.pallas_attention and N % min(256, N) == 0:
             centroid = torch.mean(pc, dim=1)
@@ -124,11 +142,6 @@ class ShapePrior(nn.Module):
             out = self.encoder(centered / scale0[:, None, None],
                                first_knn_idx=idx0)
         else:
-            if self.config.pallas_attention and pc.device.type != "cpu":
-                raise NotImplementedError(
-                    f"pallas_attention=True with N={N}, not a multiple of "
-                    "min(256, N), needs the scale kernel (kernel table row "
-                    "8), which is not ported yet")
             normalized, centroid, scale0 = self.normalize_input(pc)
             out = self.encoder(normalized)
         center, pred_scale, z_so3, z_inv = out
@@ -145,6 +158,24 @@ class ShapePrior(nn.Module):
         index 0: the JAX `n_fps=1`)."""
         sampled, _ = fps_auto(pc, self.config.n_pcl, mask=mask)
         return self.encode(sampled)
+
+    def invariant_query(self, query: torch.Tensor, codes: Codes) -> torch.Tensor:
+        """The decoder's input for world-space points (B, M, 3):
+        (B, M, 2C + 1) = [z_inv | <q, z_so3> | |q|] with q = (query - t) / s."""
+        q = (query - codes["t"]) / codes["s"][:, None, None]
+        inner = torch.matmul(q, codes["z_so3"].transpose(-1, -2))
+        length = torch.linalg.norm(q, dim=-1, keepdim=True)
+        z = codes["z_inv"][:, None, :].expand(-1, query.shape[1], -1)
+        return torch.cat([z, inner, length], dim=-1)
+
+    def decode_sdf(self, query: torch.Tensor, codes: Codes) -> torch.Tensor:
+        """SDF at world-space points (B, M, 3) -> (B, M). Dropout follows
+        the module's train/eval mode (eval after construction)."""
+        return self.decoder(self.invariant_query(query, codes))
+
+    def occupancy_logits(self, query: torch.Tensor, codes: Codes) -> torch.Tensor:
+        """Bernoulli occupancy logits, sdf2occ_factor * sdf; (B, M)."""
+        return self.config.sdf2occ_factor * self.decode_sdf(query, codes)
 
 
 def transform_codes(codes: Codes, tsfm: torch.Tensor) -> Codes:

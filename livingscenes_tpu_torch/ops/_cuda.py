@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fps.cu", "knn.cu", "icp_stats.cu", "knn_topk.cu", "layer0.cu",
-           "mean_edge.cu", "attention.cu")
+           "mean_edge.cu", "attention.cu", "scale.cu", "sinkhorn.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 # FPS indices must equal the CPU's bit for bit: no fused multiply-add.
@@ -49,12 +49,20 @@ _SIGNATURES = {
     "lstpu_layer0_edge_mean": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "lstpu_edge_mean": [_P] * 6 + [_I] * 6 + [_F, _P],
     "lstpu_edge_attention": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "lstpu_scale": [_P, _P, _I, _I, _I, _P],
+    "lstpu_sinkhorn": [_P] * 8 + [_I] * 4 + [_P],
+    "lstpu_sinkhorn_bwd": [_P] * 10 + [_F] + [_I] * 3 + [_P],
     "lstpu_fps_max_points": [],
     "lstpu_knn_max_k": [],
     "lstpu_icp_stats_block": [],
     "lstpu_knn_topk_tile": [],
     "lstpu_knn_topk_max_points": [],
     "lstpu_knn_topk_max_top": [],
+    "lstpu_scale_tile": [],
+    "lstpu_scale_max_points": [],
+    "lstpu_scale_max_top": [],
+    "lstpu_sinkhorn_max_points": [],
+    "lstpu_sinkhorn_max_schedule": [],
 }
 
 

@@ -1,6 +1,7 @@
-"""Batched SE(3) math: transforms, Kabsch and Horn rotation fits, errors.
+"""Batched SE(3) math: transforms, the so(3)/se(3) exponential and
+logarithm maps, Kabsch and Horn rotation fits, errors.
 
-Counterpart of livingscenes_tpu/se3.py (the Lie maps are not ported yet).
+Counterpart of livingscenes_tpu/se3.py.
 Conventions: points are right-multiplied by R^T; an SE(3) transform is a
 (B, 3 or 4, 4) matrix; `kabsch` returns R (B, 3, 3) and t (B, 3, 1).
 """
@@ -27,6 +28,81 @@ def rt_to_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
     top = torch.cat([R, t.reshape(B, 3, 1)], dim=-1)
     return torch.cat([top, bottom.expand(B, 1, 4)], dim=1)
+
+
+def hat(w: torch.Tensor) -> torch.Tensor:
+    """so(3) hat operator: (..., 3) -> (..., 3, 3)."""
+    wx, wy, wz = w.unbind(-1)
+    zeros = torch.zeros_like(wx)
+    return torch.stack(
+        [
+            torch.stack([zeros, -wz, wy], dim=-1),
+            torch.stack([wz, zeros, -wx], dim=-1),
+            torch.stack([-wy, wx, zeros], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def _sincos_coeffs(theta_sq: torch.Tensor):
+    """(sin t / t, (1 - cos t) / t^2, (t - sin t) / t^3) with their Taylor
+    series below t^2 = 1e-12. The square root and the divisions see 1
+    there, not theta_sq: `torch.where` alone would still pass the untaken
+    branch's NaN gradient backward at t = 0."""
+    small = theta_sq < 1e-12
+    safe_sq = torch.where(small, 1.0, theta_sq)
+    t = torch.sqrt(safe_sq)
+    a = torch.where(small, 1.0 - theta_sq / 6.0, torch.sin(t) / t)
+    b = torch.where(small, 0.5 - theta_sq / 24.0, (1.0 - torch.cos(t)) / safe_sq)
+    c = torch.where(
+        small, 1.0 / 6.0 - theta_sq / 120.0, (t - torch.sin(t)) / (safe_sq * t)
+    )
+    return a, b, c
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues' formula, with finite gradients at 0: (..., 3) ->
+    (..., 3, 3)."""
+    W = hat(w)
+    a, b, _ = _sincos_coeffs(torch.sum(w * w, dim=-1))
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    return eye + a[..., None, None] * W + b[..., None, None] * torch.matmul(W, W)
+
+
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """se(3) exponential: xi (..., 6) = [rho | omega] -> (..., 3, 4)."""
+    rho, w = xi[..., :3], xi[..., 3:]
+    W = hat(w)
+    W2 = torch.matmul(W, W)
+    _, b, c = _sincos_coeffs(torch.sum(w * w, dim=-1))
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device)
+    V = eye + b[..., None, None] * W + c[..., None, None] * W2
+    t = torch.matmul(V, rho[..., None])
+    return torch.cat([so3_exp(w), t], dim=-1)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Logarithm of SO(3): (..., 3, 3) -> (..., 3); stable away from pi."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    theta = torch.arccos(cos_theta)
+    vee = torch.stack(
+        [
+            R[..., 2, 1] - R[..., 1, 2],
+            R[..., 0, 2] - R[..., 2, 0],
+            R[..., 1, 0] - R[..., 0, 1],
+        ],
+        dim=-1,
+    )
+    near_zero = cos_theta > 1.0 - 1e-9
+    safe_theta = torch.where(near_zero, 1.0, theta)
+    # theta / (2 sin theta) = 1/2 + (1 - cos theta) / 6 + ... near zero
+    scale = torch.where(
+        near_zero,
+        0.5 + (1.0 - cos_theta) / 6.0,
+        safe_theta / (2.0 * torch.sin(safe_theta)),
+    )
+    return scale[..., None] * vee
 
 
 def rotation_from_covariance(cov: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
-"""The scene-pair pipeline: FPS -> encode -> match -> Kabsch -> ICP.
+"""The scene-pair pipeline: FPS -> encode -> match -> Kabsch -> (SE(3)
+refinement with `optim`) -> ICP.
 
 Counterpart of livingscenes_tpu/solver/pipeline.py
-(`build_scene_pair_pipeline`) with `optim=False, recon=False`, on one
-device. Scene pairs are independent, so every instance of every scene goes
-through each stage in one batch.
+(`build_scene_pair_pipeline`) with `recon=False`, on one device. Scene
+pairs are independent, so every instance of every scene goes through each
+stage in one batch.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from .registration import RegistrationConfig, solve_pairwise_registration
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    optim: bool = False  # the SE(3) refinement: a later slice
+    optim: bool = False  # run the SE(3) refinement of every pair
     registration: RegistrationConfig = RegistrationConfig()
     # Inputs are padded per-instance clouds with validity masks, each
     # FPS-downsampled to the encoder's input size first.
@@ -39,12 +40,14 @@ def build_scene_pair_pipeline(model, cfg: PipelineConfig = PipelineConfig()):
     (S, O, N) and N may exceed the encoder's input size. Inputs may be
     numpy arrays or tensors; they are moved to the model's device.
     """
-    if cfg.optim:
-        raise NotImplementedError("optim=True is the optim slice of the port")
     if cfg.recon:
         raise NotImplementedError("recon=True is the recon slice of the port")
 
-    @torch.inference_mode()
+    # The refinement differentiates its loss with respect to the pose, on
+    # tensors made here, which inference mode would not let it save.
+    grad_mode = torch.no_grad if cfg.optim else torch.inference_mode
+
+    @grad_mode()
     def pipeline(ref_pc, rescan_pc, ref_mask=None, rescan_mask=None):
         dev, dtype = model.device, model.dtype
         ref_pc = torch.as_tensor(ref_pc, device=dev, dtype=dtype)
@@ -68,7 +71,7 @@ def build_scene_pair_pipeline(model, cfg: PipelineConfig = PipelineConfig()):
         pc2 = flat_res[flat_partner]
         c2 = {k: v[flat_partner] for k, v in codes_res.items()}
         R, t = solve_pairwise_registration(
-            model, flat_ref, pc2, codes_ref, c2, optim=False,
+            model, flat_ref, pc2, codes_ref, c2, optim=cfg.optim,
             cfg=cfg.registration,
         )
         return {

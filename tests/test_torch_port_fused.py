@@ -265,12 +265,13 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_grad():
 
 def test_fused_front_end_condition(narrow_params):
     """N a multiple of min(256, N) takes the fused front end; any other N
-    takes normalize_input on the CPU and raises off the CPU (the scale
-    kernel is not ported)."""
+    takes normalize_input, whose scale statistic comes from the scale
+    kernel's wrapper: the plain version on the CPU, and off the CPU the
+    kernel, which refuses a tensor that is not on the card."""
     m = port_model(narrow_params, torch.float32)
     with torch.no_grad():
         assert m.encode(torch.from_numpy(clouds(25, N=300)).float())["s"].shape == (3,)
-    with pytest.raises(NotImplementedError, match="row 8"):
+    with pytest.raises(ValueError, match="scale: expected CUDA"):
         m.encode(torch.empty((2, 300, 3), device="meta"))
 
 
@@ -285,7 +286,9 @@ def test_port_sources_import_no_jax():
             assert not pattern.search(f.read()), path
     for name in ("nn/cuda_layer0.py", "nn/cuda_attention.py", "csrc/knn_topk.cu",
                  "csrc/layer0.cu", "csrc/mean_edge.cu", "csrc/attention.cu",
-                 "csrc/edge_common.cuh"):
+                 "csrc/edge_common.cuh", "csrc/scale.cu", "csrc/sinkhorn.cu",
+                 "csrc/top_multiset.cuh", "ops/cuda_scale.py",
+                 "ops/cuda_sinkhorn.py"):
         assert os.path.exists(os.path.join(PORT, name)), name
 
 

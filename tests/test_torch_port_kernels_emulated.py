@@ -23,7 +23,9 @@ and at small ragged ones.
 
 Tolerances: FPS and kNN indices equal (the inputs are exact in f32 where
 ties occur); ICP statistics rtol 1e-4; the fused edge layers rtol 2e-4 plus
-atol 2e-5 of the largest magnitude, as on the card.
+atol 2e-5 of the largest magnitude, as on the card; the scale statistic rtol
+1e-6; the Sinkhorn potentials rtol/atol 1e-5 and their gradient rtol 1e-4
+plus atol 1e-6 (f32 rounding of arguments up to 1e3 in the exponentials).
 """
 import ctypes
 import re
@@ -36,7 +38,9 @@ import torch
 
 from livingscenes_tpu_torch.nn import cuda_attention, cuda_layer0
 from livingscenes_tpu_torch.nn.vec_layers import channel_equi_vec_normalize
-from livingscenes_tpu_torch.ops import _cuda, cuda_fps, cuda_icp, cuda_knn
+from livingscenes_tpu_torch.ops import (
+    _cuda, cuda_fps, cuda_icp, cuda_knn, cuda_scale, cuda_sinkhorn)
+from livingscenes_tpu_torch.ops.sinkhorn import eps_annealing_schedule
 from livingscenes_tpu_torch.ops.fps import farthest_point_sampling
 from livingscenes_tpu_torch.ops.knn import knn
 
@@ -366,3 +370,62 @@ def test_attention_kernel(on_host, Ns, Nd, C, O, K, head_c):
     args = (src, dst, idx, q_n, W_K, D_K, W_V, D_V, head_c)
     assert_close(cuda_attention.fused_edge_attention_cuda(*args),
                  cuda_attention.fused_edge_attention_plain(*args))
+
+
+@pytest.mark.parametrize("N,k,tied", [(100, 5, False), (150, 5, True), (7, 5, False), (64, 8, False)])
+def test_scale_kernel(on_host, N, k, tied):
+    rng = np.random.default_rng(7)
+    pc = f32(rng, 3, N, 3)
+    if tied:
+        # a lattice cloud: the largest distances are tied many times over
+        pc[1, :128] = lattice(rng, (8, 4, 4))
+        pc[1, 128:] = 0.0
+    got = cuda_scale.top_k_mean_pairwise_distance_cuda(pc, k)
+    want = cuda_scale.top_k_mean_pairwise_distance_plain(pc, k)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+SINKHORN_SHAPES = [
+    # N, M, schedule
+    (50, 50, eps_annealing_schedule(0.05)),   # the refinement's schedule
+    (70, 33, eps_annealing_schedule(0.1)),    # N != M, no multiple of a warp
+    (20, 45, [0.01] * 5),                     # a single temperature, repeated
+]
+
+
+def sinkhorn_clouds(rng, N, M):
+    x = f32(rng, 2, N, 3, scale=0.3)
+    y = f32(rng, 2, M, 3, scale=0.3) + 0.1
+    return x, y
+
+
+@pytest.mark.parametrize("N,M,schedule", SINKHORN_SHAPES)
+def test_sinkhorn_kernel(on_host, N, M, schedule):
+    x, y = sinkhorn_clouds(np.random.default_rng(8), N, M)
+    got = cuda_sinkhorn.extrapolated_forward_cuda(x, y, schedule)
+    want = cuda_sinkhorn.ot_extrapolated_potentials_plain(x, y, schedule)
+    want += cuda_sinkhorn.sinkhorn_iterates_plain(x, y, schedule)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    # the same code stopped before the final pair
+    for g, w in zip(cuda_sinkhorn.sinkhorn_iterates_cuda(x, y, schedule), want[2:]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("N,M,schedule", SINKHORN_SHAPES)
+@pytest.mark.parametrize("cots", ["both", "f_only", "g_only"])
+def test_sinkhorn_bwd_kernel(on_host, N, M, schedule, cots):
+    rng = np.random.default_rng(9)
+    x, y = sinkhorn_clouds(rng, N, M)
+    cf = f32(rng, 2, N) if cots != "g_only" else None
+    cg = f32(rng, 2, M) if cots != "f_only" else None
+    saved = cuda_sinkhorn.extrapolated_forward_cuda(x, y, schedule)
+    dx, dy = cuda_sinkhorn.extrapolated_backward_cuda(
+        x, y, *saved, cf, cg, schedule[-1])
+    with torch.enable_grad():
+        xv, yv = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+        f, g = cuda_sinkhorn.ot_extrapolated_potentials_plain(xv, yv, schedule)
+        total = sum(torch.sum(c * p) for c, p in ((cf, f), (cg, g)) if c is not None)
+        wx, wy = torch.autograd.grad(total, (xv, yv))
+    torch.testing.assert_close(dx, wx, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(dy, wy, rtol=1e-4, atol=1e-6)

@@ -66,7 +66,8 @@ def test_params_from_jax_fills_every_parameter(trained):
     state = convert.params_from_jax(trained)
     m = ShapePrior(device="cpu")
     m.load_state_dict(state, strict=True)
-    assert len(state) == len(list(_leaves(trained["encoder"])))
+    assert len(state) == len(list(_leaves(trained)))
+    assert sum(k.startswith("decoder.") for k in state) == 8 * 3 + 2
 
 
 def test_trained_encode_matches_jax(trained):
