@@ -47,41 +47,6 @@ struct Smem {
   }
 };
 
-// Fold the K features of the thread's columns o..o+3 < O into the partial
-// sums sq (kf.q_n, weighted) and c2q (knorm^2) of channel group o / 4.
-template <int TX>
-__device__ __forceinline__ void key_scores(const float (&f)[kEPT][3][4],
-                                           const float* __restrict__ qn_b,
-                                           int O, int o, float* sq,
-                                           float* c2q, const Block& blk) {
-  const int te = threadIdx.x / TX;
-  const int Oq = O / 4;
-#pragma unroll
-  for (int j = 0; j < kEPT; ++j) {
-    const int e = te * kEPT + j;
-    if (e >= blk.e_act) continue;
-    const int n = blk.n0 + e / blk.K;
-    // q_n[n][o..o+3][0..2]: 12 consecutive floats
-    const float4* qp =
-        reinterpret_cast<const float4*>(qn_b + ((size_t)n * O + o) * 3);
-    const float4 q0 = qp[0], q1 = qp[1], q2 = qp[2];
-    const float q[12] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y,
-                         q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
-    float s = 0.0f, c2 = 0.0f;
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const float f0 = f[j][0][v], f1 = f[j][1][v], f2 = f[j][2][v];
-      const float kn = sqrtf(fmaxf(f0 * f0 + f1 * f1 + f2 * f2, 0.0f));
-      const float u = kn / fmaxf(kn, 1e-12f);
-      const float dot = f0 * q[3 * v] + f1 * q[3 * v + 1] + f2 * q[3 * v + 2];
-      s += dot * u;
-      c2 += kn * kn;
-    }
-    sq[e * Oq + o / 4] = s;
-    c2q[e * Oq + o / 4] = c2;
-  }
-}
-
 template <int TX>
 __global__ void __launch_bounds__(kThreads)
     attention_kernel(const float* __restrict__ src,
@@ -130,38 +95,8 @@ __global__ void __launch_bounds__(kThreads)
       key_scores<TX>(acc, qn_b, O, o, sq, c2q, blk);
     }
   }
-  __syncthreads();
-
   // cross per edge, logits per (edge, head), softmax over the K edges
-  for (int e = threadIdx.x; e < blk.e_act; e += kThreads) {
-    float c2 = 0.0f;
-    for (int g = 0; g < Oq; ++g) c2 += c2q[e * Oq + g];
-    cross_s[e] = fmaxf(sqrtf(c2), 1e-12f);
-  }
-  __syncthreads();
-  const float inv_sqrt = 1.0f / sqrtf((float)(3 * head_c));
-  const int hq = head_c / 4;
-  for (int t = threadIdx.x; t < blk.e_act * H; t += kThreads) {
-    const int e = t / H, h = t % H;
-    float s = 0.0f;
-    for (int g = 0; g < hq; ++g) s += sq[e * Oq + h * hq + g];
-    w_s[e * H + h] = s / cross_s[e] * inv_sqrt;
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < (blk.e_act / K) * H; t += kThreads) {
-    const int nl = t / H, h = t % H;
-    float* col = w_s + nl * K * H + h;  // stride H over the K edges
-    float m = -INFINITY;
-    for (int k = 0; k < K; ++k) m = fmaxf(m, col[k * H]);
-    float sum = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const float ex = expf(col[k * H] - m);
-      col[k * H] = ex;
-      sum += ex;
-    }
-    for (int k = 0; k < K; ++k) col[k * H] = col[k * H] / sum;
-  }
-  __syncthreads();
+  attention_weights(sq, c2q, cross_s, w_s, nullptr, O, head_c, blk);
 
   // V branch: columns [O, 2 O)
   conv_rows<TX>(y_s, ldy, nn_s, ldn, C, wl_t + O, 2 * O, O, ydst_b + O, 2 * O,

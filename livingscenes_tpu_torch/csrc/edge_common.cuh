@@ -1,5 +1,5 @@
 // Device code shared by the fused edge layers: layer0.cu, mean_edge.cu and
-// attention.cu.
+// attention.cu, and their backward kernels (through edge_bwd.cuh).
 //
 // All three run, per destination point and its K <= 16 neighbours (edges),
 //
@@ -15,8 +15,8 @@
 // registers. The products are plain f32 FMAs on the CUDA cores: thread
 // (to, te) accumulates 2 edges x 3 components x 4 outputs per output tile
 // of OT = 4 TX columns, so one edge's three components meet in one thread
-// and the activation needs no exchange. Sums run in a fixed order (no
-// atomics): results are deterministic.
+// and the activation needs no exchange. The forward kernels sum in a fixed
+// order (no atomics): their results are deterministic.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,26 +126,19 @@ __device__ __forceinline__ void stash_b(const float4 (&pre)[Tile<TX>::NLD],
   }
 }
 
-// acc[j][i][v] = sum_c As[((te*kEPT + j)*3 + i)*lda + c] *
-//                      Bt[c*ldb + o0 + 4*to + v],   c in [0, cdim),
+// acc[j][i][v] += sum_c As[((te*kEPT + j)*3 + i)*lda + c] *
+//                       Bt[c*ldb + o0 + 4*to + v],   c in [0, cdim),
 // for the block's 3 EB rows and the OT columns from o0 (columns at or beyond
 // o_end count as 0). As is a shared operand whose columns up to the next
 // multiple of kKC are finite; Bt is row-major in device memory, 16-byte
 // aligned with ldb and o_end multiples of 4. Ends with a barrier.
 template <int TX>
-__device__ __forceinline__ void gemm(float (&acc)[kEPT][3][4], const float* As,
-                                     int lda, int cdim,
-                                     const float* __restrict__ Bt, int ldb,
-                                     int o0, int o_end, float* Bs) {
+__device__ __forceinline__ void gemm_acc(float (&acc)[kEPT][3][4],
+                                         const float* As, int lda, int cdim,
+                                         const float* __restrict__ Bt, int ldb,
+                                         int o0, int o_end, float* Bs) {
   using T = Tile<TX>;
   const int to = threadIdx.x % TX, te = threadIdx.x / TX;
-#pragma unroll
-  for (int j = 0; j < kEPT; ++j)
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[j][i][v] = 0.0f;
-
   float4 pre[T::NLD];
   fetch_b<TX>(pre, Bt, ldb, 0, cdim, o0, o_end);
   for (int c0 = 0; c0 < cdim; c0 += kKC) {
@@ -190,6 +183,21 @@ __device__ __forceinline__ void gemm(float (&acc)[kEPT][3][4], const float* As,
   }
 }
 
+// gemm_acc into acc set to 0 first.
+template <int TX>
+__device__ __forceinline__ void gemm(float (&acc)[kEPT][3][4], const float* As,
+                                     int lda, int cdim,
+                                     const float* __restrict__ Bt, int ldb,
+                                     int o0, int o_end, float* Bs) {
+#pragma unroll
+  for (int j = 0; j < kEPT; ++j)
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[j][i][v] = 0.0f;
+  gemm_acc<TX>(acc, As, lda, cdim, Bt, ldb, o0, o_end, Bs);
+}
+
 // The edge convolution of one branch into shared memory:
 //   y_s[(e*3+i)*ldy + o] = sum_c nn_s[(e*3+i)*ldn + c] wl_t[c*ldw + o]
 //                          + ydst_b[(n*3 + i)*ldyd + o]
@@ -223,6 +231,54 @@ __device__ __forceinline__ void conv_rows(float* y_s, int ldy,
                         acc[j][i][2] + d.z, acc[j][i][3] + d.w);
       }
     }
+  }
+  __syncthreads();
+}
+
+// Layer 0: per edge the nine scalars [cross(dst^, nn), nn - dst, dst] into
+// edge_s (EB, 12), dst^ = dst / max(|dst|, 1e-12) (zeros for missing
+// edges), then the pre-activation rows
+//   y_s[(e*3 + i)*ldy + o] = cross_i W[o][0] + (nn - dst)_i W[o][1]
+//                            + dst_i W[o][2]
+// for o < O. xyz_b is one instance's (N, 3). Ends with a barrier.
+template <int TX>
+__device__ __forceinline__ void layer0_rows(float* y_s, int ldy,
+                                            float* edge_s,
+                                            const float* __restrict__ xyz_b,
+                                            const float* __restrict__ W,
+                                            int O, const int* idx_s,
+                                            const Block& blk) {
+  constexpr int EB = Tile<TX>::EB;
+  for (int e = threadIdx.x; e < EB; e += kThreads) {
+    float* s = edge_s + e * 12;
+    if (e < blk.e_act) {
+      const float* d = xyz_b + (size_t)(blk.n0 + e / blk.K) * 3;
+      const float* p = xyz_b + (size_t)idx_s[e] * 3;
+      const float d0 = d[0], d1 = d[1], d2 = d[2];
+      const float n0 = p[0], n1 = p[1], n2 = p[2];
+      const float dn = fmaxf(sqrtf(d0 * d0 + d1 * d1 + d2 * d2), 1e-12f);
+      const float h0 = d0 / dn, h1 = d1 / dn, h2 = d2 / dn;
+      s[0] = h1 * n2 - h2 * n1;
+      s[1] = h2 * n0 - h0 * n2;
+      s[2] = h0 * n1 - h1 * n0;
+      s[3] = n0 - d0;
+      s[4] = n1 - d1;
+      s[5] = n2 - d2;
+      s[6] = d0;
+      s[7] = d1;
+      s[8] = d2;
+    } else {
+      for (int q = 0; q < 9; ++q) s[q] = 0.0f;
+    }
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < EB * O; t += kThreads) {
+    const int e = t / O, o = t % O;
+    const float* s = edge_s + e * 12;
+    const float wc = W[o * 3], wl = W[o * 3 + 1], wr = W[o * 3 + 2];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      y_s[(e * 3 + i) * ldy + o] = s[i] * wc + s[3 + i] * wl + s[6 + i] * wr;
   }
   __syncthreads();
 }
@@ -311,6 +367,88 @@ __device__ __forceinline__ void weighted_sum_store(
     for (int k = 0; k < blk.K; ++k)
       s += red[(nl * blk.K + k) * (3 * T::OT) + q];
     out_b[((size_t)n * O + o0) * 3 + q] = s / div;
+  }
+  __syncthreads();
+}
+
+// Attention: fold the K features of the thread's columns o..o+3 < O into the
+// partial sums sq (kf.q_n times knorm / max(knorm, 1e-12), which is 1
+// unless the channel vanishes) and c2q (knorm^2) of channel group o / 4.
+template <int TX>
+__device__ __forceinline__ void key_scores(const float (&f)[kEPT][3][4],
+                                           const float* __restrict__ qn_b,
+                                           int O, int o, float* sq,
+                                           float* c2q, const Block& blk) {
+  const int te = threadIdx.x / TX;
+  const int Oq = O / 4;
+#pragma unroll
+  for (int j = 0; j < kEPT; ++j) {
+    const int e = te * kEPT + j;
+    if (e >= blk.e_act) continue;
+    const int n = blk.n0 + e / blk.K;
+    // q_n[n][o..o+3][0..2]: 12 consecutive floats
+    const float4* qp =
+        reinterpret_cast<const float4*>(qn_b + ((size_t)n * O + o) * 3);
+    const float4 q0 = qp[0], q1 = qp[1], q2 = qp[2];
+    const float q[12] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y,
+                         q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
+    float s = 0.0f, c2 = 0.0f;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const float f0 = f[j][0][v], f1 = f[j][1][v], f2 = f[j][2][v];
+      const float kn = sqrtf(fmaxf(f0 * f0 + f1 * f1 + f2 * f2, 0.0f));
+      const float u = kn / fmaxf(kn, 1e-12f);
+      const float dot = f0 * q[3 * v] + f1 * q[3 * v + 1] + f2 * q[3 * v + 2];
+      s += dot * u;
+      c2 += kn * kn;
+    }
+    sq[e * Oq + o / 4] = s;
+    c2q[e * Oq + o / 4] = c2;
+  }
+}
+
+// Attention weights from the partial sums of key_scores: cross_s[e] =
+// max(|k|, 1e-12) over all channels of edge e, the logit of head h
+// (sum of its sq) / cross / sqrt(3 head_c), and the softmax over the K edges
+// of each (point, head) into w_s (EB, H). With sh_s, the head sums of sq go
+// there too. Starts and ends with a barrier.
+__device__ __forceinline__ void attention_weights(const float* sq,
+                                                  const float* c2q,
+                                                  float* cross_s, float* w_s,
+                                                  float* sh_s, int O,
+                                                  int head_c,
+                                                  const Block& blk) {
+  const int H = O / head_c, Oq = O / 4;
+  __syncthreads();
+  for (int e = threadIdx.x; e < blk.e_act; e += kThreads) {
+    float c2 = 0.0f;
+    for (int g = 0; g < Oq; ++g) c2 += c2q[e * Oq + g];
+    cross_s[e] = fmaxf(sqrtf(c2), 1e-12f);
+  }
+  __syncthreads();
+  const float inv_sqrt = 1.0f / sqrtf((float)(3 * head_c));
+  const int hq = head_c / 4;
+  for (int t = threadIdx.x; t < blk.e_act * H; t += kThreads) {
+    const int e = t / H, h = t % H;
+    float s = 0.0f;
+    for (int g = 0; g < hq; ++g) s += sq[e * Oq + h * hq + g];
+    if (sh_s != nullptr) sh_s[e * H + h] = s;
+    w_s[e * H + h] = s / cross_s[e] * inv_sqrt;
+  }
+  __syncthreads();
+  const int K = blk.K;
+  for (int t = threadIdx.x; t < (blk.e_act / K) * H; t += kThreads) {
+    const int nl = t / H, h = t % H;
+    float* col = w_s + nl * K * H + h;  // stride H over the K edges
+    float m = -INFINITY;
+    for (int k = 0; k < K; ++k) m = fmaxf(m, col[k * H]);
+    float sum = 0.0f;
+    for (int k = 0; k < K; ++k) {
+      const float ex = expf(col[k * H] - m);
+      col[k * H] = ex;
+      sum += ex;
+    }
+    for (int k = 0; k < K; ++k) col[k * H] = col[k * H] / sum;
   }
   __syncthreads();
 }

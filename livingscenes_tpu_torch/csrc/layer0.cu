@@ -56,38 +56,7 @@ __global__ void __launch_bounds__(kThreads)
   load_idx<TX>(idx_s, idx, blk);
   zero_pad(y_s, T::EB * 3, ldy, O);
   __syncthreads();
-  for (int e = threadIdx.x; e < T::EB; e += kThreads) {
-    float* s = edge_s + e * 12;
-    if (e < blk.e_act) {
-      const float* d = xyz_b + (size_t)(blk.n0 + e / K) * 3;
-      const float* p = xyz_b + (size_t)idx_s[e] * 3;
-      const float d0 = d[0], d1 = d[1], d2 = d[2];
-      const float n0 = p[0], n1 = p[1], n2 = p[2];
-      const float dn = fmaxf(sqrtf(d0 * d0 + d1 * d1 + d2 * d2), 1e-12f);
-      const float h0 = d0 / dn, h1 = d1 / dn, h2 = d2 / dn;
-      s[0] = h1 * n2 - h2 * n1;
-      s[1] = h2 * n0 - h0 * n2;
-      s[2] = h0 * n1 - h1 * n0;
-      s[3] = n0 - d0;
-      s[4] = n1 - d1;
-      s[5] = n2 - d2;
-      s[6] = d0;
-      s[7] = d1;
-      s[8] = d2;
-    } else {
-      for (int q = 0; q < 9; ++q) s[q] = 0.0f;
-    }
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < T::EB * O; t += kThreads) {
-    const int e = t / O, o = t % O;
-    const float* s = edge_s + e * 12;
-    const float wc = W[o * 3], wl = W[o * 3 + 1], wr = W[o * 3 + 2];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      y_s[(e * 3 + i) * ldy + o] = s[i] * wc + s[3 + i] * wl + s[6 + i] * wr;
-  }
-  __syncthreads();
+  layer0_rows<TX>(y_s, ldy, edge_s, xyz_b, W, O, idx_s, blk);
 
   float* out_b = out + (size_t)blk.b * N * O * 3;
   const int to = threadIdx.x % TX;

@@ -168,10 +168,12 @@ class ShapePrior(nn.Module):
         z = codes["z_inv"][:, None, :].expand(-1, query.shape[1], -1)
         return torch.cat([z, inner, length], dim=-1)
 
-    def decode_sdf(self, query: torch.Tensor, codes: Codes) -> torch.Tensor:
+    def decode_sdf(self, query: torch.Tensor, codes: Codes,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
         """SDF at world-space points (B, M, 3) -> (B, M). Dropout follows
-        the module's train/eval mode (eval after construction)."""
-        return self.decoder(self.invariant_query(query, codes))
+        the module's train/eval mode (eval after construction); in train
+        mode its masks come from `generator`."""
+        return self.decoder(self.invariant_query(query, codes), generator)
 
     def occupancy_logits(self, query: torch.Tensor, codes: Codes) -> torch.Tensor:
         """Bernoulli occupancy logits, sdf2occ_factor * sdf; (B, M)."""

@@ -1,5 +1,6 @@
 """The encoder's fused edge layers: plain versions and the wrappers of
-csrc/mean_edge.cu and csrc/attention.cu.
+csrc/mean_edge.cu and csrc/attention.cu and of their backward kernels,
+csrc/mean_edge_bwd.cu and csrc/attention_bwd.cu.
 
 Counterpart of livingscenes_tpu/nn/pallas_attention.py (`fused_edge_mean`,
 `fused_edge_attention`), with the same argument order and layouts:
@@ -9,7 +10,12 @@ the edge [nn - dst, dst] and D (O, O). `fused_edge_mean` and
 launch the kernel for CUDA tensors; there is no fallback. As in the JAX
 wrappers, the halves of the edge convolution that do not depend on the
 neighbour (W_r - W_l applied to dst, once per point) and the weight
-transposes are computed here; everything per edge is the kernel's.
+transposes are computed here; everything per edge is the kernel's. Under
+autograd each is a `torch.autograd.Function` that saves only its inputs and
+whose backward recomputes the edges, as the TPU kernels' do: the plain VJP
+on the CPU, the backward kernel on the card, whose per-point results (the
+gradient of ydst) are turned into d_dst and the W_r - W_l half of d_W here,
+as JAX's `_mean_bwd_impl` and `_attn_bwd_impl` do outside the kernel.
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ from .vec_layers import channel_equi_vec_normalize, leaky_relu, so3_activation
 
 mean_launches = 0  # mean_edge.cu launches since the count was last set to 0
 attention_launches = 0  # attention.cu launches since it was last set to 0
+mean_bwd_launches = 0  # mean_edge_bwd.cu launches since last set to 0
+attention_bwd_launches = 0  # attention_bwd.cu launches since last set to 0
 
 
 def fused_edge_mean_plain(src_f, dst_f, idx, W, D, neg_slope: float = 0.2):
@@ -71,7 +79,6 @@ def fused_edge_mean_cuda(src_f, dst_f, idx, W, D, neg_slope: float = 0.2):
     name = "edge_mean"
     _cuda.require_cuda(name, src_f, dst_f, W, D, dtype=torch.float32)
     _cuda.require_cuda(name, src_f, idx)
-    _cuda.forbid_grad(name, "row 13", src_f, dst_f, W, D)
     B, Ns, Nd, C, K = _check_graph(name, src_f, dst_f, idx)
     O = W.shape[0]
     if W.shape != (O, 2 * C) or D.shape != (O, O):
@@ -100,7 +107,6 @@ def fused_edge_attention_cuda(src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V,
     _cuda.require_cuda(name, src_f, dst_f, q_n, W_K, D_K, W_V, D_V,
                        dtype=torch.float32)
     _cuda.require_cuda(name, src_f, idx)
-    _cuda.forbid_grad(name, "row 14", src_f, dst_f, q_n, W_K, D_K, W_V, D_V)
     B, Ns, Nd, C, K = _check_graph(name, src_f, dst_f, idx)
     O = W_K.shape[0]
     if (W_K.shape != (O, 2 * C) or W_V.shape != (O, 2 * C)
@@ -126,23 +132,185 @@ def fused_edge_attention_cuda(src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V,
     return out
 
 
-def fused_edge_mean(src_f, dst_f, idx, W, D, neg_slope: float = 0.2):
-    """mean_K(VecLNA(2C, O)([nn - dst, dst])): (B, N_dst, O, 3)."""
-    if src_f.device.type == "cpu":
-        return fused_edge_mean_plain(src_f, dst_f, idx, W, D, neg_slope)
-    return fused_edge_mean_cuda(
-        src_f.contiguous(), dst_f.contiguous(), idx.contiguous(), W, D,
-        neg_slope,
+def _vjp(fn, inputs, g):
+    """The VJP of fn at the cotangent g w.r.t. every tensor of `inputs` that
+    is floating point, by autograd; None for the others."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) if t.is_floating_point() else t
+                  for t in inputs]
+        out = fn(*leaves)
+        wrt = [t for t in leaves if t.is_floating_point()]
+        grads = iter(torch.autograd.grad(out, wrt, g))
+    return tuple(next(grads) if t.is_floating_point() else None for t in inputs)
+
+
+def fused_edge_mean_bwd_plain(src_f, dst_f, idx, W, D, g, neg_slope: float = 0.2):
+    """The plain backward: the VJP of the plain version at the cotangent g
+    (B, N_dst, O, 3). Returns (d_src, d_dst, d_W, d_D)."""
+    d_src, d_dst, _, d_W, d_D = _vjp(
+        lambda *a: fused_edge_mean_plain(*a, neg_slope),
+        (src_f, dst_f, idx, W, D), g)
+    return d_src, d_dst, d_W, d_D
+
+
+def fused_edge_mean_bwd_cuda(src_f, dst_f, idx, W, D, g, neg_slope: float = 0.2):
+    """The backward kernel, and per point the rest of JAX's `_mean_bwd_impl`:
+    (d_src, d_dst, d_W, d_D) for float32 tensors on the card. O up to 512."""
+    global mean_bwd_launches
+    name = "edge_mean_bwd"
+    _cuda.require_cuda(name, src_f, dst_f, W, D, g, dtype=torch.float32)
+    _cuda.require_cuda(name, src_f, idx)
+    B, Ns, Nd, C, K = _check_graph(name, src_f, dst_f, idx)
+    O = W.shape[0]
+    if W.shape != (O, 2 * C) or D.shape != (O, O) or g.shape != (B, Nd, O, 3):
+        raise ValueError(f"{name}: W (O, 2C), D (O, O), g (B, Nd, O, 3)")
+    W_l = W[:, :C]
+    W_delta = W[:, C:] - W_l
+    y_dst = torch.einsum("oc,bnci->bnio", W_delta, dst_f).contiguous()
+    wl_t = W_l.t().contiguous()
+    d_t = D.t().contiguous()
+    idx = idx.to(torch.int32)
+    dev = src_f.device
+    d_src = torch.zeros_like(src_f)
+    d_ydst = torch.empty((B, Nd, 3, O), dtype=torch.float32, device=dev)
+    lib = _cuda.lib()
+    size = C * O + O * O
+    rep = torch.zeros((lib.lstpu_wgrad_replicas(), size), dtype=torch.float32,
+                      device=dev)
+    out = torch.empty(size, dtype=torch.float32, device=dev)
+    err = lib.lstpu_edge_mean_bwd(
+        src_f.data_ptr(), y_dst.data_ptr(), idx.data_ptr(), wl_t.data_ptr(),
+        W.data_ptr(), d_t.data_ptr(), D.data_ptr(), g.data_ptr(),
+        d_src.data_ptr(), d_ydst.data_ptr(), rep.data_ptr(), out.data_ptr(),
+        B, Ns, Nd, C, O, K, float(neg_slope),
+        _cuda.stream_ptr(src_f),
     )
+    _cuda.check(err, name)
+    mean_bwd_launches += 1
+    d_wl_t, d_D = out[:C * O].view(C, O), out[C * O:].view(O, O)
+    d_dst = torch.einsum("oc,bnio->bnci", W_delta, d_ydst)
+    d_W_delta = torch.einsum("bnio,bnci->oc", d_ydst, dst_f)
+    d_W = torch.cat([d_wl_t.t() - d_W_delta, d_W_delta], dim=1)
+    return d_src, d_dst, d_W, d_D
+
+
+def fused_edge_attention_bwd_plain(src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V,
+                                   g, head_c: int = 16, neg_slope: float = 0.2):
+    """The plain backward: the VJP of the plain version at the cotangent g.
+    Returns (d_src, d_dst, d_q_n, d_W_K, d_D_K, d_W_V, d_D_V)."""
+    grads = _vjp(
+        lambda *a: fused_edge_attention_plain(*a, head_c, neg_slope),
+        (src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V), g)
+    return grads[:2] + grads[3:]
+
+
+def fused_edge_attention_bwd_cuda(src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V,
+                                  g, head_c: int = 16, neg_slope: float = 0.2):
+    """The backward kernel, and per point the rest of JAX's `_attn_bwd_impl`:
+    (d_src, d_dst, d_q_n, d_W_K, d_D_K, d_W_V, d_D_V) for float32 tensors on
+    the card. O up to 512."""
+    global attention_bwd_launches
+    name = "edge_attention_bwd"
+    _cuda.require_cuda(name, src_f, dst_f, q_n, W_K, D_K, W_V, D_V, g,
+                       dtype=torch.float32)
+    _cuda.require_cuda(name, src_f, idx)
+    B, Ns, Nd, C, K = _check_graph(name, src_f, dst_f, idx)
+    O = W_K.shape[0]
+    if (W_K.shape != (O, 2 * C) or W_V.shape != (O, 2 * C)
+            or D_K.shape != (O, O) or D_V.shape != (O, O)
+            or q_n.shape != (B, Nd, O, 3) or g.shape != (B, Nd, O, 3)):
+        raise ValueError(f"{name}: W_K, W_V (O, 2C), D_K, D_V (O, O), "
+                         "q_n, g (B, Nd, O, 3)")
+    W_l = torch.cat([W_K[:, :C], W_V[:, :C]], dim=0)  # (2O, C)
+    W_delta = torch.cat([W_K[:, C:], W_V[:, C:]], dim=0) - W_l
+    y_dst = torch.einsum("oc,bnci->bnio", W_delta, dst_f).contiguous()
+    wl_t = W_l.t().contiguous()
+    dk_t, dv_t = D_K.t().contiguous(), D_V.t().contiguous()
+    idx = idx.to(torch.int32)
+    dev = src_f.device
+    d_src = torch.zeros_like(src_f)
+    d_ydst = torch.empty((B, Nd, 3, 2 * O), dtype=torch.float32, device=dev)
+    d_qn = torch.empty((B, Nd, O, 3), dtype=torch.float32, device=dev)
+    lib = _cuda.lib()
+    size = 2 * C * O + 2 * O * O
+    rep = torch.zeros((lib.lstpu_wgrad_replicas(), size), dtype=torch.float32,
+                      device=dev)
+    out = torch.empty(size, dtype=torch.float32, device=dev)
+    err = lib.lstpu_edge_attention_bwd(
+        src_f.data_ptr(), y_dst.data_ptr(), q_n.data_ptr(), idx.data_ptr(),
+        wl_t.data_ptr(), W_K.data_ptr(), W_V.data_ptr(), dk_t.data_ptr(),
+        dv_t.data_ptr(), D_K.data_ptr(), D_V.data_ptr(), g.data_ptr(),
+        d_src.data_ptr(), d_ydst.data_ptr(), d_qn.data_ptr(), rep.data_ptr(),
+        out.data_ptr(), B, Ns, Nd, C, O, K, head_c, float(neg_slope),
+        _cuda.stream_ptr(src_f),
+    )
+    _cuda.check(err, name)
+    attention_bwd_launches += 1
+    d_wl_t = out[:2 * C * O].view(C, 2 * O)
+    d_DK = out[2 * C * O:2 * C * O + O * O].view(O, O)
+    d_DV = out[2 * C * O + O * O:].view(O, O)
+    d_dst = torch.einsum("oc,bnio->bnci", W_delta, d_ydst)
+    d_W_delta = torch.einsum("bnio,bnci->oc", d_ydst, dst_f)  # (2O, C)
+    d_W_l = d_wl_t.t()
+    d_WK = torch.cat([d_W_l[:O] - d_W_delta[:O], d_W_delta[:O]], dim=1)
+    d_WV = torch.cat([d_W_l[O:] - d_W_delta[O:], d_W_delta[O:]], dim=1)
+    return d_src, d_dst, d_qn, d_WK, d_DK, d_WV, d_DV
+
+
+class _EdgeMean(torch.autograd.Function):
+    """Saves (src, dst, idx, W, D) only; the backward recomputes the edges."""
+
+    @staticmethod
+    def forward(ctx, src_f, dst_f, idx, W, D, neg_slope):
+        ctx.save_for_backward(src_f, dst_f, idx, W, D)
+        ctx.neg_slope = neg_slope
+        if src_f.device.type == "cpu":
+            return fused_edge_mean_plain(src_f, dst_f, idx, W, D, neg_slope)
+        return fused_edge_mean_cuda(src_f, dst_f, idx, W, D, neg_slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        src_f, dst_f, idx, W, D = ctx.saved_tensors
+        bwd = (fused_edge_mean_bwd_plain if src_f.device.type == "cpu"
+               else fused_edge_mean_bwd_cuda)
+        d_src, d_dst, d_W, d_D = bwd(src_f, dst_f, idx, W, D, g.contiguous(),
+                                     ctx.neg_slope)
+        return d_src, d_dst, None, d_W, d_D, None
+
+
+class _EdgeAttention(torch.autograd.Function):
+    """Saves (src, dst, idx, q_n, weights) only; the backward recomputes the
+    edges."""
+
+    @staticmethod
+    def forward(ctx, src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V, head_c,
+                neg_slope):
+        ctx.save_for_backward(src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V)
+        ctx.head_c, ctx.neg_slope = head_c, neg_slope
+        fwd = (fused_edge_attention_plain if src_f.device.type == "cpu"
+               else fused_edge_attention_cuda)
+        return fwd(src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V, head_c, neg_slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        bwd = (fused_edge_attention_bwd_plain if saved[0].device.type == "cpu"
+               else fused_edge_attention_bwd_cuda)
+        d_src, d_dst, d_qn, d_WK, d_DK, d_WV, d_DV = bwd(
+            *saved, g.contiguous(), ctx.head_c, ctx.neg_slope)
+        return d_src, d_dst, None, d_qn, d_WK, d_DK, d_WV, d_DV, None, None
+
+
+def fused_edge_mean(src_f, dst_f, idx, W, D, neg_slope: float = 0.2):
+    """mean_K(VecLNA(2C, O)([nn - dst, dst])): (B, N_dst, O, 3).
+    Differentiable w.r.t. everything but idx."""
+    args = (t.contiguous() for t in (src_f, dst_f, idx, W, D))
+    return _EdgeMean.apply(*args, neg_slope)
 
 
 def fused_edge_attention(src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V,
                          head_c: int = 16, neg_slope: float = 0.2):
-    """One attention layer's message passing: (B, N_dst, O, 3)."""
-    if src_f.device.type == "cpu":
-        return fused_edge_attention_plain(
-            src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V, head_c, neg_slope)
-    return fused_edge_attention_cuda(
-        src_f.contiguous(), dst_f.contiguous(), idx.contiguous(),
-        q_n.contiguous(), W_K, D_K, W_V, D_V, head_c, neg_slope,
-    )
+    """One attention layer's message passing: (B, N_dst, O, 3).
+    Differentiable w.r.t. everything but idx."""
+    args = (t.contiguous() for t in (src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V))
+    return _EdgeAttention.apply(*args, head_c, neg_slope)

@@ -1,12 +1,15 @@
-"""Layer 0 of the encoder, fused: the plain version and the wrapper of
-csrc/layer0.cu.
+"""Layer 0 of the encoder, fused: the plain version and the wrappers of
+csrc/layer0.cu and its backward, csrc/layer0_bwd.cu.
 
 Counterpart of livingscenes_tpu/nn/pallas_layer0.py
-(`fused_layer0_edge_mean`). Per edge the three vector channels
-[cross(dst_dir, nn), nn - dst, dst] go through VecLinear(3 -> O) and the so3
-VecActivation, and the K neighbours are averaged. `fused_layer0_edge_mean`
-takes the plain version for tensors on the CPU and launches the kernel for
-CUDA tensors; there is no fallback.
+(`fused_layer0_edge_mean` and its custom VJP). Per edge the three vector
+channels [cross(dst_dir, nn), nn - dst, dst] go through VecLinear(3 -> O) and
+the so3 VecActivation, and the K neighbours are averaged.
+`fused_layer0_edge_mean` takes the plain versions for tensors on the CPU and
+launches the kernels for CUDA tensors; there is no fallback. Under autograd
+it is a `torch.autograd.Function` that saves only its inputs and whose
+backward recomputes the edges, as the TPU kernel's does: the plain VJP on
+the CPU, the backward kernel on the card.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from ..ops import _cuda
 from ..ops.knn import gather_neighbors
 from .vec_layers import leaky_relu, so3_activation
 
-launches = 0  # kernel launches since the count was last set to 0
+launches = 0  # layer0.cu launches since the count was last set to 0
+bwd_launches = 0  # layer0_bwd.cu launches since the count was last set to 0
 
 
 def layer0_edge(src_f: torch.Tensor, dst_f: torch.Tensor, idx: torch.Tensor):
@@ -45,7 +49,6 @@ def fused_layer0_edge_mean_cuda(xyz, idx, W, D, neg_slope: float = 0.2):
     global launches
     _cuda.require_cuda("layer0_edge_mean", xyz, W, D, dtype=torch.float32)
     _cuda.require_cuda("layer0_edge_mean", xyz, idx)
-    _cuda.forbid_grad("layer0_edge_mean", "row 12", xyz, W, D)
     B, N, three = xyz.shape
     K = idx.shape[-1]
     O = W.shape[0]
@@ -65,11 +68,71 @@ def fused_layer0_edge_mean_cuda(xyz, idx, W, D, neg_slope: float = 0.2):
     return out
 
 
+def fused_layer0_edge_mean_bwd_plain(xyz, idx, W, D, g, neg_slope: float = 0.2):
+    """The plain backward: the VJP of the plain version at the cotangent g
+    (B, N, O, 3), by autograd. Returns (d_xyz, d_W, d_D)."""
+    with torch.enable_grad():
+        xyz, W, D = (t.detach().requires_grad_(True) for t in (xyz, W, D))
+        out = fused_layer0_edge_mean_plain(xyz, idx, W, D, neg_slope)
+        return torch.autograd.grad(out, (xyz, W, D), g)
+
+
+def fused_layer0_edge_mean_bwd_cuda(xyz, idx, W, D, g, neg_slope: float = 0.2):
+    """The backward kernel: (d_xyz, d_W, d_D) for float32 tensors on the
+    card. O up to 512."""
+    global bwd_launches
+    name = "layer0_edge_mean_bwd"
+    _cuda.require_cuda(name, xyz, W, D, g, dtype=torch.float32)
+    _cuda.require_cuda(name, xyz, idx)
+    B, N, three = xyz.shape
+    K = idx.shape[-1]
+    O = W.shape[0]
+    if (three != 3 or idx.shape != (B, N, K) or W.shape != (O, 3)
+            or D.shape != (O, O) or g.shape != (B, N, O, 3)):
+        raise ValueError(f"{name}: xyz (B, N, 3), idx (B, N, K), W (O, 3), "
+                         "D (O, O), g (B, N, O, 3)")
+    idx = idx.to(torch.int32)
+    d_t = D.t().contiguous()
+    d_xyz = torch.zeros_like(xyz)
+    lib = _cuda.lib()
+    size = O * 3 + O * O
+    rep = torch.zeros((lib.lstpu_wgrad_replicas(), size), dtype=torch.float32,
+                      device=xyz.device)
+    out = torch.empty(size, dtype=torch.float32, device=xyz.device)
+    err = lib.lstpu_layer0_edge_mean_bwd(
+        xyz.data_ptr(), idx.data_ptr(), W.data_ptr(), d_t.data_ptr(),
+        D.data_ptr(), g.data_ptr(), d_xyz.data_ptr(), rep.data_ptr(),
+        out.data_ptr(), B, N, O, K, float(neg_slope),
+        _cuda.stream_ptr(xyz),
+    )
+    _cuda.check(err, name)
+    bwd_launches += 1
+    return d_xyz, out[:O * 3].view(O, 3), out[O * 3:].view(O, O)
+
+
+class _Layer0EdgeMean(torch.autograd.Function):
+    """Saves (xyz, idx, W, D) only; the backward recomputes the edges."""
+
+    @staticmethod
+    def forward(ctx, xyz, idx, W, D, neg_slope):
+        ctx.save_for_backward(xyz, idx, W, D)
+        ctx.neg_slope = neg_slope
+        if xyz.device.type == "cpu":
+            return fused_layer0_edge_mean_plain(xyz, idx, W, D, neg_slope)
+        return fused_layer0_edge_mean_cuda(xyz, idx, W, D, neg_slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        xyz, idx, W, D = ctx.saved_tensors
+        bwd = (fused_layer0_edge_mean_bwd_plain if xyz.device.type == "cpu"
+               else fused_layer0_edge_mean_bwd_cuda)
+        d_xyz, d_W, d_D = bwd(xyz, idx, W, D, g.contiguous(), ctx.neg_slope)
+        return d_xyz, None, d_W, d_D, None
+
+
 def fused_layer0_edge_mean(xyz, idx, W, D, neg_slope: float = 0.2):
     """mean_K(VecLNA(3, O)([cross(dst_dir, nn), nn - dst, dst])), source and
-    destination being the same cloud: (B, N, O, 3)."""
-    if xyz.device.type == "cpu":
-        return fused_layer0_edge_mean_plain(xyz, idx, W, D, neg_slope)
-    return fused_layer0_edge_mean_cuda(
-        xyz.contiguous(), idx.contiguous(), W.contiguous(), D, neg_slope
-    )
+    destination being the same cloud: (B, N, O, 3). Differentiable w.r.t.
+    xyz, W and D; idx carries no gradient."""
+    xyz, idx, W, D = (t.contiguous() for t in (xyz, idx, W, D))
+    return _Layer0EdgeMean.apply(xyz, idx, W, D, neg_slope)

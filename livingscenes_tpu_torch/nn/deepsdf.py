@@ -3,7 +3,9 @@
 Counterpart of livingscenes_tpu/nn/deepsdf.py (`WNDense`,
 `DeepSDFDecoder`): an 8 x 768 MLP whose input, the invariant query
 [z_inv (256) | <q, z_so3> (256) | |q| (1)], is concatenated back in at
-layer 4, with ReLU, dropout in train mode only, and a final tanh. Layers 0-7
+layer 4, with ReLU, dropout in train mode only (flax's: keep with
+probability 1 - p and scale by 1 / (1 - p), the masks drawn from a
+`torch.Generator` the caller passes), and a final tanh. Layers 0-7
 are weight-normalized, a ninth (the production decoder's output layer) is a
 plain dense layer. The large matrix products stay `F.linear`, as they are
 plain matmuls in the JAX package. `v` and `kernel` keep the flax (in, out)
@@ -89,7 +91,15 @@ class DeepSDFDecoder(nn.Module):
             kind = WNDense if layer in _NORM_LAYERS else Dense
             self.lin.append(kind(widths[layer], out_dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """In train mode with dropout_prob > 0 the layers of _DROPOUT_LAYERS
+        drop out with masks drawn from `generator` (on x's device), which is
+        then required."""
+        drop = self.training and self.dropout_prob > 0.0
+        if drop and generator is None:
+            raise ValueError("DeepSDFDecoder in train mode needs a generator "
+                             "for its dropout masks")
         last = len(self.lin) - 1
         h = x
         for layer, module in enumerate(self.lin):
@@ -98,6 +108,14 @@ class DeepSDFDecoder(nn.Module):
             h = module(h)
             if layer < last:
                 h = torch.relu(h)
-                if layer in _DROPOUT_LAYERS:
-                    h = F.dropout(h, self.dropout_prob, self.training)
+                if drop and layer in _DROPOUT_LAYERS:
+                    h = dropout(h, self.dropout_prob, generator)
         return torch.tanh(h)[..., 0]
+
+
+def dropout(h: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
+    """flax.linen.Dropout: keep each entry with probability 1 - p and scale
+    the kept ones by 1 / (1 - p)."""
+    keep = torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - p
+    return torch.where(keep, h / (1.0 - p), torch.zeros((), dtype=h.dtype,
+                                                       device=h.device))

@@ -12,7 +12,10 @@ Counterpart of livingscenes_tpu/nn/vec_dgcnn_attn.py (`VecDGCNNAttn`):
 
 Every layer builds a kNN graph in feature space (ops/cuda_knn.py: the
 kernel on the card, its plain version on the CPU) and layers 2, 4 and 5
-downsample by FPS (ops/cuda_fps.py). Features are (B, N, C, 3).
+downsample by FPS (ops/cuda_fps.py). Features are (B, N, C, 3). Under
+autograd the graph and the FPS picks are built from detached inputs, as JAX's
+stop_gradient does: indices carry no gradient; the gather of the sampled
+points' features stays differentiable.
 
 The message passing of each layer is one function of nn/cuda_layer0.py and
 nn/cuda_attention.py. With `pallas_attention=False` the encoder calls their
@@ -104,8 +107,8 @@ class VecDGCNNAttn(nn.Module):
     def _knn_idx(self, src_f: torch.Tensor, dst_f: torch.Tensor) -> torch.Tensor:
         """Feature-space kNN graph (B, N_dst, K) of dst among src."""
         B, N_src, C, _ = src_f.shape
-        q = dst_f.reshape(B, dst_f.shape[1], C * 3)
-        p = src_f.reshape(B, N_src, C * 3)
+        q = dst_f.detach().reshape(B, dst_f.shape[1], C * 3)
+        p = src_f.detach().reshape(B, N_src, C * 3)
         return knn_auto(q, p, min(self.num_knn, N_src))[1]
 
     def forward(self, x: torch.Tensor, first_knn_idx: torch.Tensor | None = None):
@@ -125,7 +128,7 @@ class VecDGCNNAttn(nn.Module):
         for i in range(self.num_layers):
             if i in self.down_sample:
                 n_new = src_xyz.shape[1] // self.down_sample[i]
-                dst_xyz, fidx = fps_auto(src_xyz, n_new)
+                dst_xyz, fidx = fps_auto(src_xyz.detach(), n_new)
                 dst_f = src_f[torch.arange(B, device=x.device)[:, None], fidx]
             else:
                 dst_xyz, dst_f = src_xyz, src_f

@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fps.cu", "knn.cu", "icp_stats.cu", "knn_topk.cu", "layer0.cu",
-           "mean_edge.cu", "attention.cu", "scale.cu", "sinkhorn.cu")
+           "mean_edge.cu", "attention.cu", "scale.cu", "sinkhorn.cu",
+           "layer0_bwd.cu", "mean_edge_bwd.cu", "attention_bwd.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 # FPS indices must equal the CPU's bit for bit: no fused multiply-add.
@@ -52,6 +53,9 @@ _SIGNATURES = {
     "lstpu_scale": [_P, _P, _I, _I, _I, _P],
     "lstpu_sinkhorn": [_P] * 8 + [_I] * 4 + [_P],
     "lstpu_sinkhorn_bwd": [_P] * 10 + [_F] + [_I] * 3 + [_P],
+    "lstpu_layer0_edge_mean_bwd": [_P] * 9 + [_I] * 4 + [_F, _P],
+    "lstpu_edge_mean_bwd": [_P] * 12 + [_I] * 6 + [_F, _P],
+    "lstpu_edge_attention_bwd": [_P] * 17 + [_I] * 7 + [_F, _P],
     "lstpu_fps_max_points": [],
     "lstpu_knn_max_k": [],
     "lstpu_icp_stats_block": [],
@@ -63,6 +67,7 @@ _SIGNATURES = {
     "lstpu_scale_max_top": [],
     "lstpu_sinkhorn_max_points": [],
     "lstpu_sinkhorn_max_schedule": [],
+    "lstpu_wgrad_replicas": [],
 }
 
 
@@ -163,18 +168,6 @@ def stream_ptr(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def forbid_grad(name: str, rows: str, *tensors) -> None:
-    """Raise if autograd would record this call: the kernel has no backward
-    yet (`rows` names the backward kernels of the TPU kernel table)."""
-    import torch
-
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet (kernel table "
-            f"{rows}); call it under torch.no_grad()"
-        )
 
 
 def require_cuda(name: str, *tensors, dtype=None) -> None:

@@ -110,9 +110,12 @@ def test_decoder_dropout_only_in_train_mode():
         a, b = m(x), m(x)
         assert torch.equal(a, b)
         m.train()
-        torch.manual_seed(0)
-        c = m(x)
+        c = m(x, torch.Generator().manual_seed(0))
         assert not torch.equal(a, c)
+        # the masks come from the generator given, which train mode needs
+        assert torch.equal(c, m(x, torch.Generator().manual_seed(0)))
+        with pytest.raises(ValueError, match="generator"):
+            m(x)
 
 
 def test_field_surface_matches_jax_f64(narrow_params):

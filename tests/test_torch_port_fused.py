@@ -242,10 +242,13 @@ def test_same_state_dict_loads_under_both_configurations(narrow_params):
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_and_grad():
+    """The kernel wrappers, forward and backward, take CUDA tensors only;
+    under autograd a CPU call goes through the plain forward and VJP."""
     x = torch.zeros((1, 8, 3))
     f = torch.zeros((1, 8, 4, 3))
     idx = torch.zeros((1, 8, 2), dtype=torch.int32)
     W, D = torch.zeros((4, 8)), torch.zeros((4, 4))
+    g = torch.zeros((1, 8, 4, 3))
     with pytest.raises(ValueError, match="CUDA"):
         cuda_knn.knn_with_topk_scale_cuda(x, 2)
     with pytest.raises(ValueError, match="CUDA"):
@@ -254,13 +257,17 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_grad():
         cuda_attention.fused_edge_mean_cuda(f, f, idx, W, D)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_attention.fused_edge_attention_cuda(f, f, idx, f, W, D, W, D, 4)
-    # the kernels have no backward yet: a call autograd would record raises
-    w = torch.zeros((4, 8), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="row 13"):
-        _cuda.forbid_grad("edge_mean", "row 13", f, w)
-    with torch.no_grad():
-        _cuda.forbid_grad("edge_mean", "row 13", f, w)
-    _cuda.forbid_grad("edge_mean", "row 13", f, W)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_layer0.fused_layer0_edge_mean_bwd_cuda(x, idx, torch.zeros((4, 3)), D, g)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_attention.fused_edge_mean_bwd_cuda(f, f, idx, W, D, g)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_attention.fused_edge_attention_bwd_cuda(f, f, idx, f, W, D, W, D, g, 4)
+    w = W.clone().requires_grad_(True)
+    out = cuda_attention.fused_edge_mean(f, f, idx, w, D)
+    assert type(out.grad_fn).__name__ == "_EdgeMeanBackward"
+    (d_w,) = torch.autograd.grad(out.sum(), w)
+    assert d_w.shape == W.shape
 
 
 def test_fused_front_end_condition(narrow_params):

@@ -7,7 +7,8 @@ stand-in for the CUDA runtime (CUDA_RUNTIME_STAND_IN below, written out as
 the `cuda_runtime.h` the sources include: blocks one after another, a
 block's threads as OS threads, barriers for __syncthreads and the warp
 shuffles, dynamic shared memory poisoned with NaN). Only the launches `kernel<<<grid, block, shared, stream>>>(...)` and
-the `extern __shared__` declarations are rewritten. The port's real
+the `extern __shared__` declarations are rewritten; atomicAdd is a
+compare-and-swap loop. The port's real
 wrappers then call the emulated library on CPU tensors, so their argument
 preparation (layouts, transposes, the dst halves) is covered too.
 
@@ -23,7 +24,9 @@ and at small ragged ones.
 
 Tolerances: FPS and kNN indices equal (the inputs are exact in f32 where
 ties occur); ICP statistics rtol 1e-4; the fused edge layers rtol 2e-4 plus
-atol 2e-5 of the largest magnitude, as on the card; the scale statistic rtol
+atol 2e-5 of the largest magnitude, as on the card, and their backward
+kernels against autograd of the plain versions the same (the kernels add
+the scatter and the weight gradients with atomics, in no fixed order); the scale statistic rtol
 1e-6; the Sinkhorn potentials rtol/atol 1e-5 and their gradient rtol 1e-4
 plus atol 1e-6 (f32 rounding of arguments up to 1e3 in the exponentials).
 """
@@ -50,12 +53,14 @@ CUDA_RUNTIME_STAND_IN = r'''// A stand-in for <cuda_runtime.h> that lets a host 
 // after another; the threads of a block are OS threads that meet at
 // barriers: __syncthreads() is a barrier over the block, a warp shuffle a
 // pair of barriers over the warp's 32 threads, so every thread of a warp
-// must reach a shuffle, as on the card. Dynamic shared memory is filled
+// must reach a shuffle, as on the card. atomicAdd on a float is a
+// compare-and-swap loop on a std::atomic_ref. Dynamic shared memory is filled
 // with NaN before every block: a kernel that reads shared memory it never
 // wrote shows up as a wrong answer. This says nothing about whether nvcc
 // accepts a source, about alignment faults, or about speed.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -101,6 +106,13 @@ using std::min;
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float atomicAdd(float* address, float v) {
+  std::atomic_ref<float> ref(*address);
+  float old = ref.load(std::memory_order_relaxed);
+  while (!ref.compare_exchange_weak(old, old + v, std::memory_order_relaxed)) {
+  }
+  return old;
+}
 
 namespace cuda_emulation {
 
@@ -429,3 +441,68 @@ def test_sinkhorn_bwd_kernel(on_host, N, M, schedule, cots):
         wx, wy = torch.autograd.grad(total, (xv, yv))
     torch.testing.assert_close(dx, wx, rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(dy, wy, rtol=1e-4, atol=1e-6)
+
+
+def graph_with_repeats(rng, n_src, n_dst, K):
+    """A (2, n_dst, K) graph whose sources repeat within and across rows: a
+    few sources are every row's neighbours, so the scatter adds many edges
+    into one row."""
+    idx = rng.integers(0, n_src, (2, n_dst, K))
+    idx[:, :, 0] = 0
+    idx[:, ::2, 1] = n_src - 1
+    idx[:, 1::3, 2 % K] = 0  # row repeats the same source
+    return torch.as_tensor(idx)
+
+
+def assert_all_close(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert_close(g, w)
+
+
+@pytest.mark.parametrize("N,K,O", [(40, 16, 32), (33, 8, 48), (18, 16, 132)])
+def test_layer0_bwd_kernel(on_host, N, K, O):
+    rng = np.random.default_rng(10)
+    xyz = f32(rng, 2, N, 3)
+    xyz[1, 3] = 0.0  # a point at the origin: dst^'s clamp
+    idx = graph_with_repeats(rng, N, N, K)
+    W, D = f32(rng, O, 3, scale=0.5), f32(rng, O, O, scale=0.2)
+    g = f32(rng, 2, N, O, 3)
+    assert_all_close(
+        cuda_layer0.fused_layer0_edge_mean_bwd_cuda(xyz, idx, W, D, g),
+        cuda_layer0.fused_layer0_edge_mean_bwd_plain(xyz, idx, W, D, g))
+
+
+@pytest.mark.parametrize(
+    "Ns,Nd,C,O,K", [(50, 50, 32, 32, 16), (40, 21, 16, 48, 8), (30, 5, 36, 140, 7)])
+def test_mean_edge_bwd_kernel(on_host, Ns, Nd, C, O, K):
+    rng = np.random.default_rng(11)
+    src, dst = f32(rng, 2, Ns, C, 3), f32(rng, 2, Nd, C, 3)
+    idx = graph_with_repeats(rng, Ns, Nd, K)
+    W, D = f32(rng, O, 2 * C, scale=0.2), f32(rng, O, O, scale=0.2)
+    g = f32(rng, 2, Nd, O, 3)
+    args = (src, dst, idx, W, D, g)
+    assert_all_close(cuda_attention.fused_edge_mean_bwd_cuda(*args),
+                     cuda_attention.fused_edge_mean_bwd_plain(*args))
+
+
+@pytest.mark.parametrize(
+    "Ns,Nd,C,O,K,head_c",
+    [
+        (40, 20, 32, 64, 16, 16),   # the width of attention layers 2-3
+        (40, 7, 16, 32, 8, 16),     # ragged last block, K < 16
+        (24, 3, 20, 144, 5, 8),     # two output tiles, the second partial
+        (20, 3, 128, 256, 16, 16),  # the width of attention layer 5
+    ],
+)
+def test_attention_bwd_kernel(on_host, Ns, Nd, C, O, K, head_c):
+    rng = np.random.default_rng(12)
+    src, dst = f32(rng, 2, Ns, C, 3), f32(rng, 2, Nd, C, 3)
+    idx = graph_with_repeats(rng, Ns, Nd, K)
+    q_n = channel_equi_vec_normalize(f32(rng, 2, Nd, O, 3))
+    W_K, W_V = f32(rng, O, 2 * C, scale=0.2), f32(rng, O, 2 * C, scale=0.2)
+    D_K, D_V = f32(rng, O, O, scale=0.2), f32(rng, O, O, scale=0.2)
+    g = f32(rng, 2, Nd, O, 3)
+    args = (src, dst, idx, q_n, W_K, D_K, W_V, D_V, g, head_c)
+    assert_all_close(cuda_attention.fused_edge_attention_bwd_cuda(*args),
+                     cuda_attention.fused_edge_attention_bwd_plain(*args))

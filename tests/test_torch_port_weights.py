@@ -114,7 +114,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'livingscenes_tpu')]\n"
+        "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'yaml', 'livingscenes_tpu')]\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
     )
