@@ -12,9 +12,13 @@
    the same function, and the least time the card could take (the bound).
    The fused edge layers (layer 0, mean edge, attention at its five layer
    shapes) get the trained weights and the activations of a plain forward
-   of the trained model. The kernels of the fused encoder, forward and
-   backward, are also checked, untimed, at small ragged shapes (K < 16,
-   partial tiles, repeated sources).
+   of the trained model; attention is timed whole and its per-point
+   products alone, beside the bytes its edge pass gathers. The ICP
+   statistics kernel is timed by CUDA graph replays (its wrapper's host
+   time outlasts it) and must give the same bits on a second launch. The
+   kernels of the fused encoder, forward and backward, and the ICP
+   statistics are also checked, untimed, at small ragged shapes (K < 16,
+   partial tiles, repeated sources, exact ties).
 4. Runs the fused-encoder pipeline (ShapePriorConfig(pallas_attention=True):
    FPS -> kNN+scale -> fused encoder -> match -> Kabsch -> ICP) at full
    width with the trained checkpoint weights/production_r5_selected.ckpt
@@ -39,7 +43,8 @@
    backward against autograd of the plain forward); one timed call at
    n_steps=400 with the launch counts checked (801 Sinkhorn forwards, 800
    backwards) and every plain version forbidden; stage times; scene 0 at
-   n_steps=10 against the CPU.
+   n_steps=10 against the CPU (objects whose clouds' kNN graphs or FPS
+   picks differ between the two are named, and held only after ICP).
 7. The training path (kernel rows 12-14, the backward kernels of layer 0,
    the mean edge layer and vector attention). Each backward kernel is held
    against the plain VJP (autograd of its plain forward, in f64) on the
@@ -160,6 +165,34 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, per_graph: int = 20, replays: int = 10) -> float:
+    """Device milliseconds of one fn() call with no host work between calls:
+    `per_graph` calls captured into one CUDA graph (after a warm-up on the
+    capturing stream), the graph replayed `replays` times between events.
+    For a kernel shorter than its wrapper's host time, which cuda_ms would
+    measure instead."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * per_graph)
 
 
 def bound_ms(flops: float, nbytes: float, exps: float = 0.0):
@@ -416,10 +449,18 @@ def phase_icp(torch, report):
     want = cuda_icp.icp_stats_plain(x, src, tgt, active)
     max_err, n_amb, n_tied = check_icp_stats(
         torch, got, want, x, src, tgt, active)
+    # fixed-order sums: a second launch gives the same bits
+    again = cuda_icp.icp_stats_cuda(x, src, tgt, active)
+    if not all(torch.equal(a, g) for a, g in zip(again, got)):
+        raise AssertionError("icp stats: a second launch differs")
     all_on = torch.ones_like(active)
-    # a launch takes about 0.1 ms: time many, after a long warm-up
-    ms = cuda_ms(torch, lambda: cuda_icp.icp_stats_cuda(x, src, tgt, all_on),
-                 200, warmup=20)
+    # the kernel is shorter than its wrapper's host time: its own time from
+    # CUDA graph replays; the wrapper's, paced by the host, beside it
+    ms = graph_ms(torch, lambda: cuda_icp.icp_stats_cuda(x, src, tgt, all_on),
+                  50, 20)
+    wrapper = cuda_ms(
+        torch, lambda: cuda_icp.icp_stats_cuda(x, src, tgt, all_on), 200,
+        warmup=20)
     plain = cuda_ms(torch, lambda: cuda_icp.icp_stats_plain(x, src, tgt, all_on), 5)
     lib = cuda_ms(torch, lambda: torch.min(torch.cdist(x, tgt), dim=-1), 5)
     flops = 8.0 * B * n * m + 30.0 * B * n
@@ -427,12 +468,13 @@ def phase_icp(torch, report):
     bms, by = bound_ms(flops, nbytes)
     log(f"icp stats {B}x{n}x{m}: ok (max err {max_err:.3g}; {n_amb} sources"
         f" nearest to several targets within rounding, {n_tied} exactly "
-        f"tied sources averaged); kernel {ms:.4f}"
-        f" ms, plain {plain:.3f} ms, cdist+min {lib:.3f} ms, bound "
-        f"{bms:.4f} ms ({by}) per launch, all pairs active")
+        f"tied sources averaged; a second launch bit-equal); kernel {ms:.5f}"
+        f" ms (CUDA graph; the wrapper paced by the host {wrapper:.5f} ms), "
+        f"plain {plain:.3f} ms, cdist+min {lib:.3f} ms, bound "
+        f"{bms:.5f} ms ({by}) per launch, all pairs active")
     report["icp_stats"] = {
-        "per_launch": {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                       "bound_ms": bms},
+        "per_launch": {"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain,
+                       "library_ms": lib, "bound_ms": bms},
         "ms": ICP_ITERS * ms, "plain_ms": ICP_ITERS * plain,
         "library_ms": ICP_ITERS * lib, "bound_ms": ICP_ITERS * bms,
         "bound_by": by, "max_abs_err": max_err,
@@ -632,21 +674,59 @@ def phase_fused_layers(torch, report, calls):
             ms = cuda_ms(torch, lambda: kernel(*args), 10)
             plain = cuda_ms(torch, lambda: plain_fn(*args), 3, 1)
             bms, by = bound_ms(flops, nbytes)
+            stages = (attention_stages(torch, args, ms)
+                      if kind == "edge_attention" else {})
             r = report[kind]
             r["shapes"].append({
                 "shape": {"B": Bn, "Ns": ns, "Nd": nd, "C": C, "O": O, "K": K},
                 "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                "max_abs_err": err, "max_abs_want": float(want.abs().max())})
+                "bound_bytes": nbytes, "max_abs_err": err,
+                "max_abs_want": float(want.abs().max()), **stages})
             for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bms)):
                 r[key] += 2 * v  # ref and rescan encodes
             r["max_abs_err"] = max(r["max_abs_err"], err)
             log(f"{shape}: ok (max err {err:.3g}, max |want| "
                 f"{float(want.abs().max()):.3g}); kernel {ms:.3f} ms, plain "
-                f"{plain:.3f} ms, bound {bms:.4f} ms ({by})")
+                f"{plain:.3f} ms, bound {bms:.4f} ms ({by}; {nbytes / 1e6:.1f} "
+                "MB)" + (
+                    f"; products {stages['products_ms']:.3f} ms "
+                    f"({stages['products_gflop']:.2f} GFLOP, "
+                    f"{stages['products_bytes'] / 1e6:.0f} MB), edge pass and "
+                    f"glue {stages['edges_ms']:.3f} ms "
+                    f"({stages['edges_gathered_bytes'] / 1e9:.2f} GB gathered, "
+                    f"{stages['edges_distinct_bytes'] / 1e6:.0f} MB distinct)"
+                    if stages else ""))
             del want
     for kind in fns:
         largest = max(report[kind]["shapes"], key=lambda row: row["bound_ms"])
         report[kind]["bound_by"] = largest["bound_by"]
+
+
+def attention_stages(torch, args, total_ms):
+    """Row 7's two stages at one layer's inputs: the per-point products
+    (attention_point_products_cuda, timed alone; their flops, and their
+    bytes: each operand read once, each product written once), and the rest
+    of the wrapper's time (the edge pass and the wrapper's glue), with the
+    bytes the edge pass gathers (the Y and Kd rows of both branches of each
+    edge's source, 48 O bytes) and the distinct bytes of the rows it reads."""
+    from livingscenes_tpu_torch.nn import cuda_attention
+
+    src, dst, idx, q_n, W_K, D_K, W_V, D_V = args[:8]
+    Bn, ns, C, _ = src.shape
+    nd, K = idx.shape[1], idx.shape[2]
+    O = W_K.shape[0]
+    W_l = torch.cat([W_K[:, :C], W_V[:, :C]], dim=0)
+    W_delta = torch.cat([W_K[:, C:], W_V[:, C:]], dim=0) - W_l
+    ms = cuda_ms(torch, lambda: cuda_attention.attention_point_products_cuda(
+        src, dst, W_l, W_delta, D_K, D_V), 10)
+    rows = 3.0 * Bn * (ns + nd)
+    # D W for both weights and branches, then every row times [W | D W]
+    flops = 2.0 * (4 * C * O * O + rows * C * 4 * O)
+    floats = rows * C + 4 * C * O + 2 * O * O + rows * 4 * O
+    return {"products_ms": ms, "products_gflop": flops / 1e9,
+            "products_bytes": 4.0 * floats, "edges_ms": total_ms - ms,
+            "edges_gathered_bytes": 48.0 * O * Bn * nd * K,
+            "edges_distinct_bytes": 4.0 * rows * 4 * O}
 
 
 BWD = {"layer0": "layer0_bwd", "edge_mean": "edge_mean_bwd",
@@ -859,15 +939,18 @@ def phase_fused_layers_bwd(torch, report, calls):
 
 
 def phase_small_shapes(torch, report):
-    """Rows 4-14 against their plain versions at shapes the main path never
+    """Rows 3-14 against their plain versions at shapes the main path never
     gives them: K < 16, point counts and widths that fill no whole tile,
+    ICP clouds with fewer targets than a block's warps or more than one
+    target tile (exact distances, many ties),
     N_dst != N_src, one head and many, the largest cloud the kNN + scale
     and scale kernels take, Sinkhorn clouds with N != M that fill no whole
     warp, backward kernels on graphs with repeated sources and at the widest
     O they take (512). Random inputs from a seed; checked, not timed."""
     from livingscenes_tpu_torch.nn import cuda_attention, cuda_layer0
     from livingscenes_tpu_torch.nn.vec_layers import channel_equi_vec_normalize
-    from livingscenes_tpu_torch.ops import cuda_knn, cuda_scale, cuda_sinkhorn
+    from livingscenes_tpu_torch.ops import (
+        cuda_icp, cuda_knn, cuda_scale, cuda_sinkhorn)
     from livingscenes_tpu_torch.ops.sinkhorn import eps_annealing_schedule
 
     rng = np.random.default_rng(5)
@@ -909,7 +992,10 @@ def phase_small_shapes(torch, report):
         for ns, nd, C, O, K, head_c in ((40, 7, 16, 32, 8, 16),
                                         (30, 9, 12, 16, 3, 16),
                                         (24, 3, 20, 144, 5, 8),
-                                        (20, 3, 128, 256, 11, 16)):
+                                        (20, 3, 128, 256, 11, 16),
+                                        (30, 11, 12, 8, 5, 4),
+                                        (60, 50, 8, 24, 16, 8),
+                                        (300, 70, 36, 64, 16, 16)):
             args = (f32(2, ns, C, 3), f32(2, nd, C, 3), graph(ns, nd, K),
                     channel_equi_vec_normalize(f32(2, nd, O, 3)),
                     f32(O, 2 * C, scale=0.2), f32(O, O, scale=0.2),
@@ -918,6 +1004,23 @@ def phase_small_shapes(torch, report):
                     f"head_c={head_c}")
             check_close(name, cuda_attention.fused_edge_attention_cuda(*args),
                         cuda_attention.fused_edge_attention_plain(*args))
+            done.append(name)
+        # ICP stats on half-integer sources and integer targets: every
+        # distance is exact on both sides, and ties are many
+        for n, m in ((300, 130), (129, 1100), (1000, 3), (64, 2048)):
+            tgt = torch.as_tensor(rng.integers(-4, 5, (3, m, 3)),
+                                  dtype=torch.float32, device="cuda")
+            x = torch.as_tensor(rng.integers(-8, 9, (3, n, 3)) / 2,
+                                dtype=torch.float32, device="cuda")
+            src = f32(3, n, 3)
+            active = torch.tensor([True, False, True], device="cuda")
+            name = f"icp_stats small n={n} m={m}"
+            got = cuda_icp.icp_stats_cuda(x, src, tgt, active)
+            want = cuda_icp.icp_stats_plain(x, src, tgt, active)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(
+                    g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()),
+                    msg=lambda msg, name=name: f"{name}: {msg}")
             done.append(name)
         for n, k in ((7, 5), (37, 5), (333, 8), (4096, 5)):
             pc = f32(2, n, 3)
@@ -1179,10 +1282,11 @@ def run_config(torch, state, scenes, fused: bool, want: dict, n_timed: int,
         samples.append((time.perf_counter() - t0) * 1e3)
     call_ms = float(np.median(samples))
     pairs_per_s = N_SCENES / (call_ms / 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"{tag}: pipeline {N_SCENES}x{N_OBJ}x{N_FULL}: median {call_ms:.2f} "
         f"ms per call over {len(samples)} calls (min {min(samples):.2f}, max "
-        f"{max(samples):.2f}), {pairs_per_s:.3f} scene-pairs/s")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        f"{max(samples):.2f}), {pairs_per_s:.3f} scene-pairs/s, peak memory "
+        f"{peak_gb:.3f} GB")
 
     stages = stage_times(torch, model, ref, res, mask)
     log(f"{tag}: stages (ms, host clock with sync): " + json.dumps(stages))
@@ -1250,17 +1354,27 @@ def phase_pipeline(torch, report, state, scenes, profile: bool):
 
 class record_graphs:
     """While active, the kNN graphs and FPS picks the encoder builds
-    (vec_dgcnn_attn's knn_auto and fps_auto) are kept on the host in call
-    order, as ("knn", layer, idx (B, Nd, K)) and ("fps", layer, idx (B, n)).
-    `layer` counts the kNN graphs recorded before: the encoder layer when it
-    builds its own layer-0 graph (clouds the fused front end does not take,
-    as in phase_scale)."""
+    (vec_dgcnn_attn's knn_auto and fps_auto, and the fused front end's
+    layer-0 graph, shape_prior's knn_with_topk_scale) are kept on the host
+    in call order, as ("knn", layer, idx (B, Nd, K)) and ("fps", layer, idx
+    (B, n)). `layer` counts the kNN graphs recorded before: the encoder
+    layer, whichever way its layer-0 graph is built."""
 
     def __enter__(self):
+        from livingscenes_tpu_torch.models import shape_prior as sp
         from livingscenes_tpu_torch.nn import vec_dgcnn_attn as vda
 
         self.vda, self.saved, self.calls = vda, (vda.knn_auto, vda.fps_auto), []
+        self.sp, self.front = sp, sp.knn_with_topk_scale
         knn_real, fps_real = self.saved
+
+        def front(pc, *a, **k):
+            out = self.front(pc, *a, **k)
+            layer = sum(c[0] == "knn" for c in self.calls)
+            self.calls.append(("knn", layer, out[0].long().cpu()))
+            return out
+
+        sp.knn_with_topk_scale = front
 
         def knn(q, p, k):
             out = knn_real(q, p, k)
@@ -1279,6 +1393,7 @@ class record_graphs:
 
     def __exit__(self, *exc):
         self.vda.knn_auto, self.vda.fps_auto = self.saved
+        self.sp.knn_with_topk_scale = self.front
 
 
 def graph_differences(card_calls, cpu_calls, n):
@@ -1693,23 +1808,55 @@ def phase_optim(torch, report, state, profile: bool):
     cpu_model.load_state_dict(state)
     checks = {}
     for name, reg in (("refine only", dict(icp_iterations=0)), ("refine + icp", {})):
-        card = pipeline(model, REFINE_CPU_STEPS, **reg)(ref[:1], res[:1])
+        with record_graphs() as card_graphs:
+            card = pipeline(model, REFINE_CPU_STEPS, **reg)(ref[:1], res[:1])
         t0 = time.perf_counter()
-        cpu = pipeline(cpu_model, REFINE_CPU_STEPS, **reg)(ref_np[:1], res_np[:1])
+        with record_graphs() as cpu_graphs:
+            cpu = pipeline(cpu_model, REFINE_CPU_STEPS, **reg)(ref_np[:1], res_np[:1])
         cpu_s = time.perf_counter() - t0
         if not torch.equal(card["matches0"].cpu(), cpu["matches0"]):
             raise AssertionError(f"{tag}: matches0 differs between card and CPU")
-        dR = float((card["R"].cpu() - cpu["R"]).abs().max())
+        # the pipeline encodes the reference objects, then the rescan's
+        half = len(card_graphs.calls) // 2
+        n_ref = sum(c[0] == "knn" for c in card_graphs.calls[:half])
+        first = {}
+        for name_c, part, shift in (("reference", slice(None, half), 0),
+                                    ("rescan", slice(half, None), n_ref)):
+            first[name_c] = graph_differences(
+                *([(k, layer - shift, a) for k, layer, a in g.calls[part]]
+                  for g in (card_graphs, cpu_graphs)), N_OBJ)[0]
+        m0 = cpu["matches0"][0]
+        swapped = {}
+        for o in range(N_OBJ):
+            w = (first["reference"][o] and f"reference cloud {o}: {first['reference'][o]}"
+                 or first["rescan"][int(m0[o])]
+                 and f"rescan cloud {int(m0[o])}: {first['rescan'][int(m0[o])]}")
+            if w:
+                swapped[o] = w
+        dR_obj = (card["R"].cpu() - cpu["R"]).abs().amax((-1, -2))[0]
+        dR = float(dR_obj.max())
         dt = float((card["t"].cpu() - cpu["t"]).abs().max())
-        checks[name] = {"max_abs_dR": dR, "max_abs_dt": dt}
+        held = [o for o in range(N_OBJ) if o not in swapped or name != "refine only"]
+        dR_held = float(dR_obj[held].max()) if held else 0.0
+        checks[name] = {"max_abs_dR": dR, "max_abs_dt": dt,
+                        "max_abs_dR_held": dR_held, "graph_differs": swapped}
         log(f"{tag}: card vs cpu on scene 0, n_steps={REFINE_CPU_STEPS}, {name}: "
-            f"matches0 equal, max|dR| {dR:.3g}, max|dt| {dt:.3g} (cpu run {cpu_s:.1f} s)")
+            f"matches0 equal, max|dR| {dR:.3g} (objects held: {dR_held:.3g}), "
+            f"max|dt| {dt:.3g}; objects whose clouds' graphs differ, by the "
+            f"first layer that does: "
+            + (", ".join(f"{o}: {w} (|dR| {float(dR_obj[o]):.3g})"
+                         for o, w in swapped.items()) or "none")
+            + f" (cpu run {cpu_s:.1f} s)")
         # f32 rounding carried through Adam steps, whose normalized update
         # amplifies it: 1e-4 measured after the refinement alone, 4.9e-4
         # after ICP as well (NVIDIA H100 80GB HBM3); the bound is four times
-        # the larger
-        if dR > 2e-3:
-            raise AssertionError(f"{tag}: {name}: R differs from the CPU run by {dR}")
+        # the larger. An object whose clouds got a different kNN graph or
+        # FPS pick on the two sides starts the refinement from other codes
+        # (ROADMAP Queue C): after the refinement alone it is named, not
+        # held; after ICP every object is held.
+        if dR_held > 2e-3:
+            raise AssertionError(
+                f"{tag}: {name}: R differs from the CPU run by {dR_held}")
     # does the direction pick ever differ between card and CPU?
     with torch.no_grad():
         flips = 0
@@ -2059,7 +2206,12 @@ def summary_line(report) -> str:
         f"{name} {report[name]['launches']} launches {report[name]['ms']:.2f} ms "
         f"(plain {report[name]['plain_ms']:.2f}, bound {report[name]['bound_ms']:.3f})"
         for name in BWD.values())
-    return (f"summary: scene-pairs/s fused {report['pipeline']['scene_pairs_per_s']:.4f}, "
+    attn = "/".join(f"{row['ms']:.3f}" for row in report["edge_attention"]["shapes"])
+    heads = (f"row 7 {report['edge_attention']['ms']:.3f} ms in 10 launches "
+             f"(layers 2-6 {attn}), row 3 "
+             f"{report['icp_stats']['per_launch']['ms']:.5f} ms a launch; "
+             f"fused call peak {report['pipeline']['peak_mem_gb']:.3f} GB; ")
+    return (f"summary: {heads}scene-pairs/s fused {report['pipeline']['scene_pairs_per_s']:.4f}, "
             f"default {report['pipeline_default_config']['scene_pairs_per_s']:.4f}, "
             f"optim {report['pipeline_optim']['scene_pairs_per_s']:.4f}; training step "
             f"{tr['step_ms']:.2f} ms ({split}), peak {tr['peak_mem_gb']:.2f} GB; "
@@ -2094,7 +2246,8 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_cuda.build_seconds})")
     ptxas = [ln.strip() for ln in _cuda.ptxas_report.splitlines()
-             if "registers" in ln or ln.startswith("==")]
+             if "registers" in ln or ln.startswith("==")
+             or ("spill" in ln and " 0 bytes spill stores" not in ln)]
     log("ptxas: " + " | ".join(ptxas))
 
     from livingscenes_tpu_torch.models.convert import (

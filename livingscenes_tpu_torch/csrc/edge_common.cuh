@@ -1,13 +1,16 @@
 // Device code shared by the fused edge layers: layer0.cu, mean_edge.cu and
-// attention.cu, and their backward kernels (through edge_bwd.cuh).
+// their backward kernels and attention_bwd.cu (through edge_bwd.cuh), and
+// the per-edge functions of attention.cu (vec_act, quad_key_score,
+// attention_weights), whose products are per point instead.
 //
-// All three run, per destination point and its K <= 16 neighbours (edges),
+// They run, per destination point and its K <= 16 neighbours (edges),
 //
 //   y[e][o][i]   pre-activation rows, i = 0..2 the vector component
 //   kd = D y     the activation's direction (one O x O product per row)
 //   f = y - (y.k^) k^ + k^ leaky(y.k^),  k^ = kd / max(|kd|, 1e-12)
 //   a weighted sum of f over the K edges
 //
+// (attention.cu adds y and kd from per-point rows instead of multiplying)
 // and never write an (edges, O, 3) tensor to device memory. A block of 256
 // threads owns EB edges (whole destination points). The pre-activation rows
 // of one branch stay in shared memory as a row-major (3 EB) x O matrix; the
@@ -371,9 +374,29 @@ __device__ __forceinline__ void weighted_sum_store(
   __syncthreads();
 }
 
+// Attention: the partial sums of 4 channels of one edge's K features f
+// (component-major) against q, the 12 floats q_n[n][o..o+3][0..2]: into sq
+// kf.q_n times knorm / max(knorm, 1e-12) (which is 1 unless the channel
+// vanishes), into c2 knorm^2, each summed over the 4 channels in order.
+__device__ __forceinline__ void quad_key_score(const float (&f)[3][4],
+                                               const float (&q)[12],
+                                               float& sq, float& c2) {
+  float s = 0.0f, c = 0.0f;
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    const float f0 = f[0][v], f1 = f[1][v], f2 = f[2][v];
+    const float kn = sqrtf(fmaxf(f0 * f0 + f1 * f1 + f2 * f2, 0.0f));
+    const float u = kn / fmaxf(kn, 1e-12f);
+    const float dot = f0 * q[3 * v] + f1 * q[3 * v + 1] + f2 * q[3 * v + 2];
+    s += dot * u;
+    c += kn * kn;
+  }
+  sq = s;
+  c2 = c;
+}
+
 // Attention: fold the K features of the thread's columns o..o+3 < O into the
-// partial sums sq (kf.q_n times knorm / max(knorm, 1e-12), which is 1
-// unless the channel vanishes) and c2q (knorm^2) of channel group o / 4.
+// partial sums sq and c2q of channel group o / 4 (quad_key_score).
 template <int TX>
 __device__ __forceinline__ void key_scores(const float (&f)[kEPT][3][4],
                                            const float* __restrict__ qn_b,
@@ -392,18 +415,7 @@ __device__ __forceinline__ void key_scores(const float (&f)[kEPT][3][4],
     const float4 q0 = qp[0], q1 = qp[1], q2 = qp[2];
     const float q[12] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y,
                          q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
-    float s = 0.0f, c2 = 0.0f;
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const float f0 = f[j][0][v], f1 = f[j][1][v], f2 = f[j][2][v];
-      const float kn = sqrtf(fmaxf(f0 * f0 + f1 * f1 + f2 * f2, 0.0f));
-      const float u = kn / fmaxf(kn, 1e-12f);
-      const float dot = f0 * q[3 * v] + f1 * q[3 * v + 1] + f2 * q[3 * v + 2];
-      s += dot * u;
-      c2 += kn * kn;
-    }
-    sq[e * Oq + o / 4] = s;
-    c2q[e * Oq + o / 4] = c2;
+    quad_key_score(f[j], q, sq[e * Oq + o / 4], c2q[e * Oq + o / 4]);
   }
 }
 

@@ -10,7 +10,10 @@ the edge [nn - dst, dst] and D (O, O). `fused_edge_mean` and
 launch the kernel for CUDA tensors; there is no fallback. As in the JAX
 wrappers, the halves of the edge convolution that do not depend on the
 neighbour (W_r - W_l applied to dst, once per point) and the weight
-transposes are computed here; everything per edge is the kernel's. Under
+transposes are computed here; everything per edge is the kernel's. The
+attention kernel does all its products once per point, the destination's
+half included, in a first stage of its own (`attention_point_products_cuda`),
+and leaves its edge pass only gathers, sums and the non-linear work. Under
 autograd each is a `torch.autograd.Function` that saves only its inputs and
 whose backward recomputes the edges, as the TPU kernels' do: the plain VJP
 on the CPU, the backward kernel on the card, whose per-point results (the
@@ -99,9 +102,59 @@ def fused_edge_mean_cuda(src_f, dst_f, idx, W, D, neg_slope: float = 0.2):
     return out
 
 
+def attention_point_products_plain(src_f, dst_f, W_l, W_delta, D_K, D_V):
+    """The per-point products of the attention kernel: for the source points
+    Y = W_l src and Kd = D Y, for the destination points Y = W_delta dst and
+    Kd = D Y, each (B, N, 3, 4 O) with columns [Y_K | Y_V | Kd_K | Kd_V].
+    W_l and W_delta are (2 O, C), the K branch's rows first."""
+    O = D_K.shape[0]
+
+    def rows(W, f):
+        y = torch.einsum("oc,bnci->bnio", W, f)
+        return torch.cat([y, torch.einsum("po,bnio->bnip", D_K, y[..., :O]),
+                          torch.einsum("po,bnio->bnip", D_V, y[..., O:])], -1)
+
+    return rows(W_l, src_f), rows(W_delta, dst_f)
+
+
+def attention_point_products_cuda(src_f, dst_f, W_l, W_delta, D_K, D_V):
+    """The per-point products (the first stage of the attention kernel) for
+    float32 tensors on the card: src_f (B, Ns, C, 3), dst_f (B, Nd, C, 3),
+    W_l, W_delta (2 O, C), D_K, D_V (O, O). Returns (p_src, p_dst) as
+    attention_point_products_plain; the kernel multiplies each point by
+    [W | D W], the weight products its own."""
+    name = "attention_products"
+    _cuda.require_cuda(name, src_f, dst_f, W_l, W_delta, D_K, D_V,
+                       dtype=torch.float32)
+    B, Ns, C, _ = src_f.shape
+    Nd, O = dst_f.shape[1], D_K.shape[0]
+    if (src_f.shape[-1] != 3 or dst_f.shape != (B, Nd, C, 3)
+            or W_l.shape != (2 * O, C) or W_delta.shape != (2 * O, C)
+            or D_V.shape != (O, O)):
+        raise ValueError(f"{name}: src (B, Ns, C, 3), dst (B, Nd, C, 3), "
+                         "W_l, W_delta (2O, C), D_K, D_V (O, O)")
+    dev = src_f.device
+    # [W^T | (D W)^T]: the kernel writes the second half
+    w_src = torch.empty((C, 4 * O), dtype=torch.float32, device=dev)
+    w_dst = torch.empty_like(w_src)
+    w_src[:, :2 * O] = W_l.t()
+    w_dst[:, :2 * O] = W_delta.t()
+    dk_t, dv_t = D_K.t().contiguous(), D_V.t().contiguous()
+    p_src = torch.empty((B, Ns, 3, 4 * O), dtype=torch.float32, device=dev)
+    p_dst = torch.empty((B, Nd, 3, 4 * O), dtype=torch.float32, device=dev)
+    err = _cuda.lib().lstpu_attention_products(
+        src_f.data_ptr(), dst_f.data_ptr(), w_src.data_ptr(),
+        w_dst.data_ptr(), dk_t.data_ptr(), dv_t.data_ptr(), p_src.data_ptr(),
+        p_dst.data_ptr(), B, Ns, Nd, C, O, _cuda.stream_ptr(src_f),
+    )
+    _cuda.check(err, name)
+    return p_src, p_dst
+
+
 def fused_edge_attention_cuda(src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V,
                               head_c: int = 16, neg_slope: float = 0.2):
-    """The kernel: float32 tensors on the card, idx int32 or int64."""
+    """The kernel: float32 tensors on the card, idx int32 or int64. Its two
+    stages, the per-point products and the edge pass, count as one launch."""
     global attention_launches
     name = "edge_attention"
     _cuda.require_cuda(name, src_f, dst_f, q_n, W_K, D_K, W_V, D_V,
@@ -116,16 +169,14 @@ def fused_edge_attention_cuda(src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V,
                          "q_n (B, Nd, O, 3)")
     W_l = torch.cat([W_K[:, :C], W_V[:, :C]], dim=0)  # (2O, C)
     W_delta = torch.cat([W_K[:, C:], W_V[:, C:]], dim=0) - W_l
-    y_dst = torch.einsum("oc,bnci->bnio", W_delta, dst_f).contiguous()
-    wl_t = W_l.t().contiguous()
-    dk_t = D_K.t().contiguous()
-    dv_t = D_V.t().contiguous()
+    p_src, p_dst = attention_point_products_cuda(src_f, dst_f, W_l, W_delta,
+                                                 D_K, D_V)
     idx = idx.to(torch.int32)
     out = torch.empty((B, Nd, O, 3), dtype=torch.float32, device=src_f.device)
     err = _cuda.lib().lstpu_edge_attention(
-        src_f.data_ptr(), y_dst.data_ptr(), q_n.data_ptr(), idx.data_ptr(),
-        wl_t.data_ptr(), dk_t.data_ptr(), dv_t.data_ptr(), out.data_ptr(),
-        B, Ns, Nd, C, O, K, head_c, float(neg_slope), _cuda.stream_ptr(src_f),
+        p_src.data_ptr(), p_dst.data_ptr(), q_n.data_ptr(), idx.data_ptr(),
+        out.data_ptr(), B, Ns, Nd, O, K, head_c, float(neg_slope),
+        _cuda.stream_ptr(src_f),
     )
     _cuda.check(err, name)
     attention_launches += 1

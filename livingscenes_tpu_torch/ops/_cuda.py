@@ -45,11 +45,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "lstpu_fps": [_P, _P, _P, _I, _I, _I, _P],
     "lstpu_knn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "lstpu_icp_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "lstpu_icp_stats": [_P] * 7 + [_I] * 3 + [_P],
     "lstpu_knn_topk": [_P, _P, _P, _I, _I, _I, _I, _P],
     "lstpu_layer0_edge_mean": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "lstpu_edge_mean": [_P] * 6 + [_I] * 6 + [_F, _P],
-    "lstpu_edge_attention": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "lstpu_attention_products": [_P] * 8 + [_I] * 5 + [_P],
+    "lstpu_edge_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
     "lstpu_scale": [_P, _P, _I, _I, _I, _P],
     "lstpu_sinkhorn": [_P] * 8 + [_I] * 4 + [_P],
     "lstpu_sinkhorn_bwd": [_P] * 10 + [_F] + [_I] * 3 + [_P],

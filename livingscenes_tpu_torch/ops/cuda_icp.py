@@ -63,10 +63,12 @@ def icp_stats_cuda(x, src, tgt, active=None):
     partial = torch.empty(
         (B, -(-N // block), 13), dtype=torch.float32, device=x.device
     )
+    arrived = torch.zeros((B,), dtype=torch.int32, device=x.device)
     out = torch.empty((B, 13), dtype=torch.float32, device=x.device)
     err = lib.lstpu_icp_stats(
         x.data_ptr(), src.data_ptr(), tgt.data_ptr(), active.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), B, N, M, _cuda.stream_ptr(x),
+        partial.data_ptr(), arrived.data_ptr(), out.data_ptr(), B, N, M,
+        _cuda.stream_ptr(x),
     )
     _cuda.check(err, "icp_stats")
     launches += 1

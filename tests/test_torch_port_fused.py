@@ -12,13 +12,16 @@ Tolerances:
     which agree to rounding; on the lattice cloud both are exact).
   * the three fused layer functions: rtol 2e-4, atol 2e-5, the bound the
     JAX package holds its kernels to against their XLA branches
-    (tests/test_pallas_attention.py).
+    (tests/test_pallas_attention.py); the same for the per-point form of
+    attention (the card kernel's algebra) against the Pallas kernel, and
+    rtol 1e-9 in f64 against JAX's XLA attention path.
   * whole encoder, f32: atol 1e-4 on z_so3 and z_inv, rtol 1e-4 on s and t;
     f64 against the JAX parity path and between the port's two
     configurations: rtol 1e-9 (rounding only; the graphs are identical).
   * whole pipeline, f64, Kabsch ICP refit on both sides: matches0 equal,
     R and t to 1e-6.
 """
+import math
 import os
 import re
 import shutil
@@ -32,16 +35,24 @@ import torch
 from livingscenes_tpu.models import shape_prior as jsp
 from livingscenes_tpu.nn import pallas_attention as jpa
 from livingscenes_tpu.nn import pallas_layer0 as jl0
+from livingscenes_tpu.nn.edge_conv import fused_edge_kv as jfused_edge_kv
 from livingscenes_tpu.nn.vec_layers import (
     channel_equi_vec_normalize as j_channel_normalize,
 )
 from livingscenes_tpu.ops import pallas_knn as jknn
+from livingscenes_tpu.ops.knn import gather_neighbors as jgather
 from livingscenes_tpu.solver import pipeline as jpipe
 from livingscenes_tpu.solver import registration as jreg
 from livingscenes_tpu_torch.models.convert import params_from_jax
 from livingscenes_tpu_torch.models.shape_prior import ShapePrior, ShapePriorConfig
 from livingscenes_tpu_torch.nn import cuda_attention, cuda_layer0
+from livingscenes_tpu_torch.nn.vec_layers import (
+    channel_equi_vec_normalize,
+    leaky_relu,
+    so3_activation,
+)
 from livingscenes_tpu_torch.ops import _cuda, cuda_knn
+from livingscenes_tpu_torch.ops.knn import gather_neighbors
 from livingscenes_tpu_torch.solver.pipeline import (
     PipelineConfig,
     build_scene_pair_pipeline,
@@ -146,6 +157,74 @@ def test_fused_edge_attention_matches_pallas(Ns, Nd, C, O, K, head_c):
         *(torch.from_numpy(a) for a in args), head_c=head_c)
     assert got.shape == (2, Nd, O, 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-5)
+
+
+def per_point_attention(src, dst, idx, q_n, W_K, D_K, W_V, D_V, head_c,
+                        slope=0.2):
+    """The algebra of the card's attention kernel in plain PyTorch: the
+    products once per source and destination point
+    (attention_point_products_plain), then per edge only the gathers, the
+    sums of the two halves, the activation, the softmax and the sum."""
+    C, O = src.shape[2], W_K.shape[0]
+    W_l = torch.cat([W_K[:, :C], W_V[:, :C]])
+    W_delta = torch.cat([W_K[:, C:], W_V[:, C:]]) - W_l
+    p_src, p_dst = cuda_attention.attention_point_products_plain(
+        src, dst, W_l, W_delta, D_K, D_V)  # (B, N, 3, 4O): [Y | D Y]
+    p = gather_neighbors(p_src, idx) + p_dst[:, :, None]  # (B, Nd, K, 3, 4O)
+    f = so3_activation(p[..., :2 * O].transpose(-1, -2),
+                       p[..., 2 * O:].transpose(-1, -2), leaky_relu(slope))
+    k_n = channel_equi_vec_normalize(f[..., :O, :])
+    qk = torch.sum(k_n * q_n[:, :, None], dim=-1)  # (B, Nd, K, O)
+    logits = qk.reshape(*qk.shape[:3], O // head_c, head_c).sum(-1)
+    attn = torch.softmax(logits / math.sqrt(3 * head_c), dim=2)
+    attn = attn.repeat_interleave(head_c, dim=-1)
+    return torch.sum(attn[..., None] * f[..., O:, :], dim=2)
+
+
+def jax_xla_attention(src, dst, idx, q_n, W_K, D_K, W_V, D_V, head_c):
+    """JAX's XLA attention path (nn/vec_dgcnn_attn.py), the function the
+    Pallas kernel replaces: that kernel computes in f32 whatever its inputs,
+    this path in the inputs' precision."""
+    B, Ns, C, _ = src.shape
+    nn_f = jgather(src.reshape(B, Ns, C * 3), idx).reshape(*idx.shape, C, 3)
+    k_f, v_f = jfused_edge_kv(nn_f, dst, W_K, D_K, W_V, D_V,
+                              lambda x: jax.nn.leaky_relu(x, 0.2))
+    qk = jnp.einsum("bnkci,bnci->bnkc", j_channel_normalize(k_f), q_n)
+    O = W_K.shape[0]
+    qk_h = qk.reshape(*qk.shape[:3], O // head_c, head_c)
+    attn = jax.nn.softmax(jnp.sum(qk_h, -1, keepdims=True)
+                          / np.sqrt(3 * head_c), axis=2)
+    attn = jnp.broadcast_to(attn, qk_h.shape).reshape(qk.shape)
+    return jnp.einsum("bnkc,bnkci->bnci", attn, v_f)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize(
+    "Ns,Nd,C,O,K,head_c",
+    [(64, 32, 16, 48, 8, 16), (128, 32, 8, 32, 16, 8), (40, 40, 12, 8, 5, 4)],
+)
+def test_per_point_factorisation_matches_jax(Ns, Nd, C, O, K, head_c, dtype):
+    """f32: against JAX's fused_edge_attention (the Pallas kernel in
+    interpret mode) at the file's tolerance. f64: against JAX's XLA path in
+    f64 at rtol 1e-9 (rounding only)."""
+    rng = np.random.default_rng(14)
+    src, dst = f32(rng, 2, Ns, C, 3), f32(rng, 2, Nd, C, 3)
+    idx = rng.integers(0, Ns, (2, Nd, K)).astype(np.int32)
+    q_n = np.array(j_channel_normalize(jnp.asarray(f32(rng, 2, Nd, O, 3))))
+    W_K, W_V = f32(rng, O, 2 * C, scale=0.2), f32(rng, O, 2 * C, scale=0.2)
+    D_K, D_V = f32(rng, O, O, scale=0.2), f32(rng, O, O, scale=0.2)
+    args = [a.astype(dtype) for a in (src, dst)] + [idx] + [
+        a.astype(dtype) for a in (q_n, W_K, D_K, W_V, D_V)]
+    got = per_point_attention(
+        *(torch.from_numpy(a) for a in args[:2]), torch.from_numpy(idx).long(),
+        *(torch.from_numpy(a) for a in args[3:]), head_c).numpy()
+    jargs = [jnp.asarray(a) for a in args]
+    if dtype == "float32":
+        want = jpa.fused_edge_attention(*jargs, head_c=head_c, interpret=True)
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-4, atol=2e-5)
+    else:
+        want = jax_xla_attention(*jargs, head_c=head_c)
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-9, atol=1e-12)
 
 
 @pytest.fixture(scope="module")
@@ -293,6 +372,7 @@ def test_port_sources_import_no_jax():
             assert not pattern.search(f.read()), path
     for name in ("nn/cuda_layer0.py", "nn/cuda_attention.py", "csrc/knn_topk.cu",
                  "csrc/layer0.cu", "csrc/mean_edge.cu", "csrc/attention.cu",
+                 "csrc/point_products.cuh",
                  "csrc/edge_common.cuh", "csrc/scale.cu", "csrc/sinkhorn.cu",
                  "csrc/top_multiset.cuh", "ops/cuda_scale.py",
                  "ops/cuda_sinkhorn.py"):

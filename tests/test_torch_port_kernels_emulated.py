@@ -54,7 +54,9 @@ CUDA_RUNTIME_STAND_IN = r'''// A stand-in for <cuda_runtime.h> that lets a host 
 // barriers: __syncthreads() is a barrier over the block, a warp shuffle a
 // pair of barriers over the warp's 32 threads, so every thread of a warp
 // must reach a shuffle, as on the card. atomicAdd on a float is a
-// compare-and-swap loop on a std::atomic_ref. Dynamic shared memory is filled
+// compare-and-swap loop on a std::atomic_ref, on an unsigned a fetch_add;
+// __threadfence a sequentially consistent fence (a counter in device memory
+// is then seen by the blocks that follow). Dynamic shared memory is filled
 // with NaN before every block: a kernel that reads shared memory it never
 // wrote shows up as a wrong answer. This says nothing about whether nvcc
 // accepts a source, about alignment faults, or about speed.
@@ -113,6 +115,10 @@ inline float atomicAdd(float* address, float v) {
   }
   return old;
 }
+inline unsigned atomicAdd(unsigned* address, unsigned v) {
+  return std::atomic_ref<unsigned>(*address).fetch_add(v);
+}
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 
 namespace cuda_emulation {
 
@@ -331,15 +337,32 @@ def test_knn_topk_kernel(on_host, N, k, tied):
     torch.testing.assert_close(sk, sp, rtol=1e-6, atol=0)
 
 
-def test_icp_stats_kernel(on_host):
+@pytest.mark.parametrize(
+    "n,m,tied",
+    [
+        (300, 130, False),  # sources fill no whole block, targets no warp split
+        (129, 1100, False),  # two target tiles, one source past a block
+        (256, 128, True),   # exact ties: sources at half-integer offsets
+        (5, 3, False),      # fewer targets than warps: most splits empty
+    ],
+)
+def test_icp_stats_kernel(on_host, n, m, tied):
     rng = np.random.default_rng(3)
-    x, src, tgt = f32(rng, 3, 300, 3), f32(rng, 3, 300, 3), f32(rng, 3, 130, 3)
+    x, src, tgt = f32(rng, 3, n, 3), f32(rng, 3, n, 3), f32(rng, 3, m, 3)
+    if tied:
+        # a lattice of targets; each source is equally near 2, 4 or 8 of them
+        tgt[2] = lattice(rng, (8, 4, 4))
+        x[2] = torch.as_tensor(
+            rng.integers(-3, 3, (n, 3)) + 0.5 * rng.integers(0, 2, (n, 3)),
+            dtype=torch.float32)
     active = torch.tensor([True, False, True])
-    got = cuda_icp.icp_stats_cuda(x, src, tgt, active)
+    got, again = (cuda_icp.icp_stats_cuda(x, src, tgt, active) for _ in range(2))
     want = cuda_icp.icp_stats_plain(x, src, tgt, active)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
-    assert not bool(got[0][1].any())
+    assert not any(bool(g[1].any()) for g in got)
+    # fixed-order sums: the same bits on every launch
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("N,K,O", [(40, 16, 32), (33, 8, 48), (18, 16, 132)])
@@ -364,12 +387,33 @@ def test_mean_edge_kernel(on_host, Ns, Nd, C, O, K):
 
 
 @pytest.mark.parametrize(
+    "Ns,Nd,C,O",
+    [
+        (40, 21, 12, 8),     # narrowest: one 64-wide column tile, 32 used
+        (300, 7, 36, 64),    # 15 row tiles of sources, the last partial
+        (5, 130, 132, 144),  # depth 132: a partial slice; five column tiles
+    ],
+)
+def test_attention_products_kernel(on_host, Ns, Nd, C, O):
+    rng = np.random.default_rng(14)
+    src, dst = f32(rng, 2, Ns, C, 3), f32(rng, 2, Nd, C, 3)
+    W_l, W_delta = f32(rng, 2 * O, C, scale=0.2), f32(rng, 2 * O, C, scale=0.2)
+    D_K, D_V = f32(rng, O, O, scale=0.2), f32(rng, O, O, scale=0.2)
+    args = (src, dst, W_l, W_delta, D_K, D_V)
+    assert_all_close(cuda_attention.attention_point_products_cuda(*args),
+                     cuda_attention.attention_point_products_plain(*args))
+
+
+@pytest.mark.parametrize(
     "Ns,Nd,C,O,K,head_c",
     [
         (40, 20, 32, 64, 16, 16),   # the width of attention layers 2-3
         (40, 7, 16, 32, 8, 16),     # ragged last block, K < 16
         (24, 3, 20, 144, 5, 8),     # two output tiles, the second partial
         (20, 3, 128, 256, 16, 16),  # the width of attention layer 5
+        (30, 11, 12, 8, 5, 4),      # O = 8: two heads of 4 channels
+        (60, 50, 8, 24, 16, 8),     # 42 points a block: the second partial
+        (30, 70, 12, 16, 3, 16),    # Nd > Ns, one head, K = 3
     ],
 )
 def test_attention_kernel(on_host, Ns, Nd, C, O, K, head_c):
