@@ -42,8 +42,10 @@
 // - One thread a source then forms its 13 statistics; warp shuffles and the
 //   four warps in order give the block's partial row. The last block of a
 //   pair to finish (a per-pair counter behind __threadfence) sums the
-//   pair's partial rows in block order: one launch, no float atomics, the
-//   same result on every run.
+//   pair's partial rows in block order and sets the counter back to 0: one
+//   launch, no float atomics, the same result on every run, and no fill of
+//   the counters between launches (the wrapper keeps them, per device and
+//   stream, from one call to the next).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -243,13 +245,15 @@ __global__ void __launch_bounds__(kThreads)
     float s = 0.0f;
     for (unsigned k = 0; k < gridDim.x; ++k) s += rows[k * kStats + threadIdx.x];
     out[(size_t)b * kStats + threadIdx.x] = s;
+    if (threadIdx.x == 0) arrived[b] = 0u;  // ready for the next launch
   }
 }
 
 }  // namespace
 
 // x, src (B, n, 3), tgt (B, m, 3) f32; active (B,) bool; partial scratch
-// (B, ceil(n / 128), 13) f32; arrived (B,) uint32 scratch, all 0; out
+// (B, ceil(n / 128), 13) f32; arrived (B,) uint32 counters, all 0, which
+// the launch leaves at 0; out
 // (B, 13) f32 = [S row-major, nn_sum, dmin_sum]. Launches on `stream`.
 extern "C" int lstpu_icp_stats(const void* x, const void* src, const void* tgt,
                                const void* active, void* partial,

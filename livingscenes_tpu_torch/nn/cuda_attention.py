@@ -32,7 +32,8 @@ from .edge_conv import fused_edge_kv
 from .vec_layers import channel_equi_vec_normalize, leaky_relu, so3_activation
 
 mean_launches = 0  # mean_edge.cu launches since the count was last set to 0
-attention_launches = 0  # attention.cu launches since it was last set to 0
+attention_launches = 0  # attention.cu edge-pass launches since last set to 0
+products_launches = 0  # its per-point products' launches (two a call), ditto
 mean_bwd_launches = 0  # mean_edge_bwd.cu launches since last set to 0
 attention_bwd_launches = 0  # attention_bwd.cu launches since last set to 0
 
@@ -122,7 +123,8 @@ def attention_point_products_cuda(src_f, dst_f, W_l, W_delta, D_K, D_V):
     float32 tensors on the card: src_f (B, Ns, C, 3), dst_f (B, Nd, C, 3),
     W_l, W_delta (2 O, C), D_K, D_V (O, O). Returns (p_src, p_dst) as
     attention_point_products_plain; the kernel multiplies each point by
-    [W | D W], the weight products its own."""
+    [W | D W], the weight products D W in a launch of their own before it."""
+    global products_launches
     name = "attention_products"
     _cuda.require_cuda(name, src_f, dst_f, W_l, W_delta, D_K, D_V,
                        dtype=torch.float32)
@@ -148,13 +150,15 @@ def attention_point_products_cuda(src_f, dst_f, W_l, W_delta, D_K, D_V):
         p_dst.data_ptr(), B, Ns, Nd, C, O, _cuda.stream_ptr(src_f),
     )
     _cuda.check(err, name)
+    products_launches += 2
     return p_src, p_dst
 
 
 def fused_edge_attention_cuda(src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V,
                               head_c: int = 16, neg_slope: float = 0.2):
-    """The kernel: float32 tensors on the card, idx int32 or int64. Its two
-    stages, the per-point products and the edge pass, count as one launch."""
+    """The kernel: float32 tensors on the card, idx int32 or int64. Three
+    launches: the two of the per-point products (`products_launches`), then
+    the edge pass (`attention_launches`)."""
     global attention_launches
     name = "edge_attention"
     _cuda.require_cuda(name, src_f, dst_f, q_n, W_K, D_K, W_V, D_V,

@@ -21,6 +21,20 @@ import torch
 from . import _cuda
 
 launches = 0  # kernel launches since the count was last set to 0
+_counters = {}  # (device, stream) -> the kernel's per-pair arrival counters
+
+
+def pair_counters(x, B):
+    """The kernel's (>= B,) int32 per-pair arrival counters for the device
+    and stream of x: zeros when made, and left at zero by every launch (the
+    last block of each pair resets its own), so no call fills them. One
+    buffer per stream, as launches on one stream never overlap."""
+    key = (x.device, _cuda.stream_ptr(x))
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < B:
+        buf = torch.zeros((B,), dtype=torch.int32, device=x.device)
+        _counters[key] = buf
+    return buf
 
 
 def icp_stats_plain(x, src, tgt, active=None):
@@ -63,7 +77,7 @@ def icp_stats_cuda(x, src, tgt, active=None):
     partial = torch.empty(
         (B, -(-N // block), 13), dtype=torch.float32, device=x.device
     )
-    arrived = torch.zeros((B,), dtype=torch.int32, device=x.device)
+    arrived = pair_counters(x, B)
     out = torch.empty((B, 13), dtype=torch.float32, device=x.device)
     err = lib.lstpu_icp_stats(
         x.data_ptr(), src.data_ptr(), tgt.data_ptr(), active.data_ptr(),

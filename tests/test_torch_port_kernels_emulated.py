@@ -363,6 +363,8 @@ def test_icp_stats_kernel(on_host, n, m, tied):
     assert not any(bool(g[1].any()) for g in got)
     # fixed-order sums: the same bits on every launch
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # the last block of each pair set its counter back to 0 for the next call
+    assert not bool(cuda_icp.pair_counters(x, 3).any())
 
 
 @pytest.mark.parametrize("N,K,O", [(40, 16, 32), (33, 8, 48), (18, 16, 132)])
