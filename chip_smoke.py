@@ -15,10 +15,13 @@
    of the trained model; attention is timed whole and its per-point
    products alone, beside the bytes its edge pass gathers. The ICP
    statistics kernel is timed by CUDA graph replays (its wrapper's host
-   time outlasts it) and must give the same bits on a second launch. The
-   kernels of the fused encoder, forward and backward, and the ICP
-   statistics are also checked, untimed, at small ragged shapes (K < 16,
-   partial tiles, repeated sources, exact ties).
+   time outlasts it) and must give the same bits on a second launch. FPS
+   runs the front end's two batches as one stacked launch (timed beside the
+   two launches it replaces) and is also checked from a random start index.
+   Every kernel is also checked, untimed, at small ragged shapes (K < 16,
+   partial tiles, repeated sources, exact ties; kNN at each query tile, FPS
+   in each form, from a start index, stacked, and past its registers at
+   12288 points).
 4. Runs the fused-encoder pipeline (ShapePriorConfig(pallas_attention=True):
    FPS -> kNN+scale -> fused encoder -> match -> Kabsch -> ICP) at full
    width with the trained checkpoint weights/production_r5_selected.ckpt
@@ -34,7 +37,8 @@
    the encoder's own layer-0 kNN) against the CPU on the first 16 clouds,
    with the kNN graphs and FPS picks of every layer compared: clouds whose
    graphs are equal on both sides are held to 1e-4, the others are named
-   with the first layer that differs.
+   with the first layer that differs, and that difference must be a
+   near-tie by an f64 witness (knn_tie_witness, fps_tie_witness).
 6. The refinement path, PipelineConfig(optim=True) on 8 scenes x 8 objects x
    1024 points with the fused encoder, the 8 x 768 decoder and the trained
    checkpoint: a warm-up call of 3 steps, whose first Sinkhorn inputs (the
@@ -44,7 +48,9 @@
    n_steps=400 with the launch counts checked (801 Sinkhorn forwards, 800
    backwards) and every plain version forbidden; stage times; scene 0 at
    n_steps=10 against the CPU (objects whose clouds' kNN graphs or FPS
-   picks differ between the two are named, and held only after ICP).
+   picks differ between the two are named, their first difference must be
+   a near-tie by the f64 witness, and they are held to 5e-2 after the
+   refinement alone, like every object to 2e-3 after ICP).
 7. The training path (kernel rows 12-14, the backward kernels of layer 0,
    the mean edge layer and vector attention). Each backward kernel is held
    against the plain VJP (autograd of its plain forward, in f64) on the
@@ -226,44 +232,72 @@ def make_scenes(rng, n_scenes=N_SCENES, n_pts=N_FULL):
 
 
 def phase_fps(torch, report):
+    """Row 1 at the fused call's shapes: the front end's two batches stacked
+    in one launch (2B x 4096 -> 1024, masked: half a cloud padded, fewer
+    valid points than k, a random mask), timed beside the two launches of B
+    it replaces, and the encoder's three shapes (two launches each, one an
+    encode). Indices bit-equal to the plain version, from index 0 and from
+    a random start index per cloud."""
     from livingscenes_tpu_torch.ops import cuda_fps
     from livingscenes_tpu_torch.ops.fps import farthest_point_sampling
 
     rng = np.random.default_rng(1)
-    shapes = [(N_FULL, N_PCL, True)] + [(n, k, False) for n, k in FPS_ENCODER]
+    shapes = ([(2 * B, N_FULL, N_PCL, True, 1)]
+              + [(B, n, k, False, 2) for n, k in FPS_ENCODER])
     total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     rows = []
-    for n, k, masked in shapes:
+    for clouds, n, k, masked, calls in shapes:
         pts = torch.as_tensor(
-            rng.uniform(-1, 1, (B, n, 3)).astype(np.float32), device="cuda"
+            rng.uniform(-1, 1, (clouds, n, 3)).astype(np.float32), device="cuda"
         )
         mask = None
         if masked:
-            m = np.ones((B, n), bool)
+            m = np.ones((clouds, n), bool)
             m[1, n // 2:] = False  # half the points padded
             m[2, k // 2:] = False  # fewer valid points than k
             m[3] = rng.random(n) > 0.3
             mask = torch.as_tensor(m, device="cuda")
-        got = cuda_fps.fps_cuda(pts, k, mask).long()
-        want = farthest_point_sampling(pts, k, mask)[1]
-        torch.cuda.synchronize()
-        bad = int((got != want).sum())
-        if bad:
-            raise AssertionError(f"fps {B}x{n}->{k}: {bad} indices differ")
-        ms = cuda_ms(torch, lambda: cuda_fps.fps_cuda(pts, k, mask), 10)
+        start = torch.as_tensor(rng.integers(0, n, clouds), dtype=torch.int32,
+                                device="cuda")
+        for s in (None, start):
+            got = cuda_fps.fps_cuda(pts, k, mask, s).long()
+            want = farthest_point_sampling(
+                pts, k, mask, start_idx=0 if s is None else s)[1]
+            torch.cuda.synchronize()
+            bad = int((got != want).sum())
+            if bad:
+                raise AssertionError(f"fps {clouds}x{n}->{k} (start "
+                                     f"{'random' if s is not None else 0}): "
+                                     f"{bad} indices differ")
+        # the kernel's device time (CUDA graph replays: at 32 picks the
+        # wrapper's host time outlasts the kernel), and the wrapper's
+        ms = graph_ms(torch, lambda: cuda_fps.fps_cuda(pts, k, mask))
+        wrapper = cuda_ms(torch, lambda: cuda_fps.fps_cuda(pts, k, mask), 10)
         plain = cuda_ms(
             torch, lambda: farthest_point_sampling(pts, k, mask), 2, 1)
-        flops = 8.0 * B * n * (k - 1)
-        nbytes = B * n * 12 + (B * n if masked else 0) + B * k * 4
+        flops = 8.0 * clouds * n * (k - 1)
+        nbytes = clouds * n * 12 + (clouds * n if masked else 0) + clouds * k * 4
         bms, by = bound_ms(flops, nbytes)
-        calls = 2  # ref and rescan
         total["ms"] += calls * ms
         total["plain_ms"] += calls * plain
         total["bound_ms"] += calls * bms
-        rows.append({"shape": [B, n, k], "masked": masked, "ms": ms,
-                     "plain_ms": plain, "bound_ms": bms, "bound_by": by})
-        log(f"fps {B}x{n}->{k} masked={masked}: exact; kernel {ms:.3f} ms, "
-            f"plain {plain:.3f} ms, bound {bms:.4f} ms ({by})")
+        row = {"shape": [clouds, n, k], "masked": masked, "launches": calls,
+               "ms": ms, "ns_a_round": ms * 1e6 / (k - 1), "wrapper_ms": wrapper,
+               "plain_ms": plain, "bound_ms": bms, "bound_by": by}
+        extra = ""
+        if clouds == 2 * B:
+            # the same work as two launches of B clouds, as the front end
+            # made them before it stacked its batches
+            halves = [(pts[:B].contiguous(), mask[:B].contiguous()),
+                      (pts[B:].contiguous(), mask[B:].contiguous())]
+            row["ms_two_launches"] = graph_ms(
+                torch, lambda: [cuda_fps.fps_cuda(x, k, mm) for x, mm in halves])
+            extra = f" (two launches of {B}: {row['ms_two_launches']:.4f} ms)"
+        rows.append(row)
+        log(f"fps {clouds}x{n}->{k} masked={masked}: exact from 0 and from a "
+            f"random start; kernel {ms:.4f} ms{extra}, {row['ns_a_round']:.1f} "
+            f"ns a round (the wrapper {wrapper:.4f} ms), plain {plain:.3f} ms, "
+            f"bound {bms:.4f} ms ({by})")
     report["fps"] = {"shapes": rows, **total, "max_abs_err": 0.0,
                      "library_ms": None, "bound_by": "operations"}
 
@@ -323,7 +357,9 @@ def phase_knn(torch, report):
             raise AssertionError(f"knn {nq}x{np_}x{D}: distances differ")
         swapped = check_graph(torch, f"knn {nq}x{np_}x{D}", q, p, ik, ip)
         max_err = max(max_err, float(err.max()))
-        ms = cuda_ms(torch, lambda: cuda_knn.knn_cuda(q, p, k), 20)
+        # the kernel's device time (CUDA graph replays) and the wrapper's
+        ms = graph_ms(torch, lambda: cuda_knn.knn_cuda(q, p, k))
+        wrapper = cuda_ms(torch, lambda: cuda_knn.knn_cuda(q, p, k), 20)
         plain = cuda_ms(torch, lambda: knn(q, p, k), 5)
         lib = cuda_ms(torch, lambda: torch.topk(
             torch.cdist(q, p) ** 2, k, dim=-1, largest=False), 5)
@@ -334,13 +370,14 @@ def phase_knn(torch, report):
                        ("library_ms", lib)):
             total[key] += 2 * v  # ref and rescan encodes
             fused[key] += 2 * v if layer else 0.0
-        rows.append({"shape": [B, nq, np_, D], "ms": ms, "plain_ms": plain,
+        rows.append({"shape": [B, nq, np_, D], "ms": ms, "wrapper_ms": wrapper,
+                     "plain_ms": plain,
                      "library_ms": lib, "bound_ms": bms, "bound_by": by,
                      "swapped": int(swapped.sum()),
                      "max_abs_err": float(err.max())})
         log(f"knn {B}x{nq}x{np_}x{D}: ok ({int(swapped.sum())} swaps); "
-            f"kernel {ms:.3f} ms, plain {plain:.3f} ms, cdist+topk {lib:.3f}"
-            f" ms, bound {bms:.4f} ms ({by})")
+            f"kernel {ms:.4f} ms (the wrapper {wrapper:.4f}), plain {plain:.3f} "
+            f"ms, cdist+topk {lib:.3f} ms, bound {bms:.4f} ms ({by})")
     report["knn"] = {"shapes": rows, **total, "max_abs_err": max_err,
                      "bound_by": "operations", "fused_path": fused}
 
@@ -957,8 +994,11 @@ def phase_fused_layers_bwd(torch, report, calls):
 
 
 def phase_small_shapes(torch, report):
-    """Rows 3-14 against their plain versions at shapes the main path never
-    gives them: K < 16, point counts and widths that fill no whole tile,
+    """Rows 1-14 against their plain versions at shapes the main path never
+    gives them: kNN at ragged query and source counts and widths, k < 16,
+    each tiling (form); FPS at ragged N, masked tails, a start index, each
+    form (warps a cloud), the stacked front end, and 12288 points (past the
+    kernel's registers); K < 16, point counts and widths that fill no whole tile,
     ICP clouds with fewer targets than a block's warps or more than one
     target tile (exact distances, many ties),
     N_dst != N_src, one head and many, the largest cloud the kNN + scale
@@ -968,7 +1008,9 @@ def phase_small_shapes(torch, report):
     from livingscenes_tpu_torch.nn import cuda_attention, cuda_layer0
     from livingscenes_tpu_torch.nn.vec_layers import channel_equi_vec_normalize
     from livingscenes_tpu_torch.ops import (
-        cuda_icp, cuda_knn, cuda_scale, cuda_sinkhorn)
+        cuda_fps, cuda_icp, cuda_knn, cuda_scale, cuda_sinkhorn)
+    from livingscenes_tpu_torch.ops.fps import farthest_point_sampling
+    from livingscenes_tpu_torch.ops.knn import knn
     from livingscenes_tpu_torch.ops.sinkhorn import eps_annealing_schedule
 
     rng = np.random.default_rng(5)
@@ -983,6 +1025,62 @@ def phase_small_shapes(torch, report):
 
     done = []
     with torch.inference_mode():
+        # row 2: random reals (distances within 1e-5 of |q|^2 + d, index
+        # swaps only at f64 near-ties) and small integers (exact: equal)
+        for nq, np_, D, k in ((70, 300, 50, 16), (40, 12, 21, 10),
+                              (1000, 1000, 3, 16), (33, 129, 96, 5),
+                              (128, 200, 24, 16), (32, 32, 768, 16)):
+            for ints in (False, True):
+                if ints:
+                    q, p = (torch.as_tensor(rng.integers(-2, 3, (2, n, D)),
+                                            dtype=torch.float32, device="cuda")
+                            for n in (nq, np_))
+                else:
+                    q, p = f32(2, nq, D), f32(2, np_, D)
+                dp, ip = knn(q, p, k)
+                for form in range(4):
+                    name = (f"knn small Nq={nq} Np={np_} D={D} k={k} form={form}"
+                            + (" integers" if ints else ""))
+                    dk, ik = cuda_knn.knn_cuda(q, p, k, form)
+                    if ints:
+                        if not (torch.equal(ik.long(), ip) and torch.equal(dk, dp)):
+                            raise AssertionError(f"{name}: differs")
+                    else:
+                        tol = 1e-5 * (torch.sum(q.double() ** 2, -1, keepdim=True)
+                                      + dp.double())
+                        if bool(((dk.double() - dp.double()).abs() > tol).any()):
+                            raise AssertionError(f"{name}: distances differ")
+                        check_graph(torch, name, q, p, ik.long(), ip)
+                done.append(f"knn small Nq={nq} Np={np_} D={D} k={k} "
+                            f"{'integers' if ints else 'reals'} x4")
+        # row 1: bit-equal indices
+        for Bn, n, k, warps in ((6, 1000, 200, 0), (6, 37, 50, 1), (5, 333, 64, 2),
+                                (3, 777, 100, 4), (2, 4096, 300, 16),
+                                (2, 12288, 256, 0), (1, 12288, 64, 16)):
+            pts = f32(Bn, n, 3)
+            mask = torch.as_tensor(rng.random((Bn, n)) > 0.3, device="cuda")
+            mask[0, k // 3:] = False  # fewer valid points than k
+            mask[-1, n - n // 5:] = False  # a padded tail
+            start = torch.as_tensor(rng.integers(0, n, Bn), dtype=torch.int32,
+                                    device="cuda")
+            for m, st in ((None, None), (mask, None), (mask, start)):
+                got = cuda_fps.fps_cuda(pts, k, m, st, warps=warps).long()
+                want = farthest_point_sampling(
+                    pts, k, m, start_idx=0 if st is None else st)[1]
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"fps small B={Bn} N={n} k={k} warps={warps}: "
+                        f"{int((got != want).sum())} indices differ")
+            done.append(f"fps small B={Bn} N={n} k={k} warps={warps} x3")
+        # the front end's stacked launch against two launches
+        ref, res = f32(3, 500, 3), f32(3, 500, 3)
+        m_ref = torch.as_tensor(rng.random((3, 500)) > 0.4, device="cuda")
+        both = cuda_fps.fps_cuda(torch.cat([ref, res]), 100,
+                                 torch.cat([m_ref, torch.ones_like(m_ref)]))
+        if not torch.equal(both, torch.cat([cuda_fps.fps_cuda(ref, 100, m_ref),
+                                            cuda_fps.fps_cuda(res, 100)])):
+            raise AssertionError("fps small: the stacked launch differs from two")
+        done.append("fps small stacked front end")
         for n, k in ((20, 5), (100, 16), (333, 7), (4096, 16)):
             pc = f32(2, n, 3)
             ik, sk = cuda_knn.knn_with_topk_scale_cuda(pc, k)
@@ -1361,10 +1459,12 @@ def phase_pipeline(torch, report, state, scenes, profile: bool):
     per_encode = {"knn_topk": 1, "layer0": 1, "edge_mean": 1,
                   "edge_attention": len(KNN_LAYERS) - 2,
                   "edge_attention_products": 2 * (len(KNN_LAYERS) - 2)}
-    fused_want = {"fps": 8, "knn": 2 * (len(KNN_LAYERS) - 1),
+    # FPS: the front end's one stacked launch, then three an encode
+    n_fps = 1 + 2 * len(FPS_ENCODER)
+    fused_want = {"fps": n_fps, "knn": 2 * (len(KNN_LAYERS) - 1),
                   "icp_stats": ICP_ITERS,
                   **{k: 2 * v for k, v in per_encode.items()}}
-    plain_want = {"fps": 8, "knn": 2 * len(KNN_LAYERS), "icp_stats": ICP_ITERS,
+    plain_want = {"fps": n_fps, "knn": 2 * len(KNN_LAYERS), "icp_stats": ICP_ITERS,
                   **{k: 0 for k in per_encode}}
     fused, out_f = run_config(torch, state, scenes, True, fused_want, 11, profile)
     plain, out_p = run_config(torch, state, scenes, False, plain_want, 1, profile)
@@ -1389,8 +1489,8 @@ class record_graphs:
     in call order, as ("knn", layer, idx (B, Nd, K)) and ("fps", layer, idx
     (B, n)). `layer` counts the kNN graphs recorded before: the encoder
     layer, whichever way its layer-0 graph is built. With `keep_inputs`,
-    inputs[i] holds the float32 (query, points) of a kNN call i on the host
-    (None for FPS)."""
+    inputs[i] holds the float32 inputs of call i on the host: (query,
+    points) of a kNN call, (points,) of an FPS call."""
 
     def __init__(self, keep_inputs=False):
         self.keep_inputs, self.inputs = keep_inputs, []
@@ -1427,7 +1527,7 @@ class record_graphs:
             out = fps_real(x, n)
             layer = sum(c[0] == "knn" for c in self.calls)
             self.calls.append(("fps", layer, out[1].long().cpu()))
-            self.kept()
+            self.kept(x)
             return out
 
         vda.knn_auto, vda.fps_auto = knn, fps
@@ -1503,6 +1603,91 @@ def knn_tie_witness(torch, card, cpu, b):
     return out
 
 
+def fps_tie_witness(torch, card, cpu, b):
+    """Why cloud b's FPS picks differ between the card and the CPU, from the
+    first FPS call that differs (card, cpu: (idx (B, k), (points,)) of that
+    call on each side): the first position whose pick differs, the two
+    picks, and on each side's own inputs in f64 the running minimum after
+    that side's own earlier picks. The difference is backed when, on each
+    side, (1) the side's pick is the argmax of that running minimum within
+    f32 rounding (not below the largest by more than 1e-6 of it: the
+    difference form rounds each distance to about 2.4e-7 of itself), and
+    (2) the two picks' values are a near-tie: within 4 sqrt(3) delta
+    (sqrt(v_a) + sqrt(v_b)) plus that rounding, where delta is the largest
+    coordinate difference between the two sides' points, the most the
+    inputs' difference can move a squared distance |x - s|^2 = v; and when
+    the two sides' points agree within 1e-3 of their largest coordinate.
+    Then the FPS kernel is not at fault: the picks swap on inputs that
+    differ by the rounding of the layers before. Returns the numbers and
+    that verdict."""
+    (ia, (xa,)), (ib, (xb,)) = card, cpu
+    pos = int(torch.nonzero(ia[b] != ib[b])[0])
+    pick_card, pick_cpu = int(ia[b, pos]), int(ib[b, pos])
+    delta = float((xa[b].double() - xb[b].double()).abs().max())
+    out = {"position": pos, "pick_card": pick_card, "pick_cpu": pick_cpu,
+           "inputs_abs_diff": delta,
+           "inputs_rel_diff": delta / float(xb[b].abs().max())}
+    ok = out["inputs_rel_diff"] <= 1e-3
+    for side, x, idx, mine, other in (("card", xa, ia, pick_card, pick_cpu),
+                                      ("cpu", xb, ib, pick_cpu, pick_card)):
+        x64 = x[b].double()
+        earlier = x64[idx[b, :pos]]
+        v = torch.sum((x64[:, None, :] - earlier[None]) ** 2, -1).min(-1).values
+        top = float(v.max())
+        vm, vo = float(v[mine]), float(v[other])
+        rounding = 1e-6 * top
+        allow = 4 * 3 ** 0.5 * delta * (vm ** 0.5 + vo ** 0.5) + rounding
+        right = vm >= top - rounding
+        tie = abs(vm - vo) <= allow
+        ok &= right and tie
+        out[side] = {"v_mine": vm, "v_other": vo, "v_max": top,
+                     "gap": vm - vo, "allowed_gap": allow,
+                     "pick_right": right, "near_tie": tie}
+    out["near_tie"] = ok
+    return out
+
+
+def witness_first_difference(torch, card_graphs, cpu_graphs, where, c,
+                             start=0, shift=0, end=None):
+    """The tie witness (knn_tie_witness or fps_tie_witness) of cloud c at
+    its first difference `where` ("knn layer 2", ...), from the calls
+    [start, end) of two record_graphs(keep_inputs=True) runs whose layers
+    are counted from `shift`."""
+    kind, _, layer = where.split()
+    end = len(card_graphs.calls) if end is None else end
+    j = next(j for j in range(start, end)
+             if card_graphs.calls[j][:2] == (kind, int(layer) + shift))
+    witness = knn_tie_witness if kind == "knn" else fps_tie_witness
+    return witness(torch, *((g.calls[j][2], g.inputs[j])
+                            for g in (card_graphs, cpu_graphs)), c)
+
+
+def log_witness(tag, what, w):
+    """One line that says what a tie witness found."""
+    if "pick_card" in w:
+        log(f"{tag}: {what}, the first FPS pick that differs: position "
+            f"{w['position']}, point {w['pick_card']} on the card, "
+            f"{w['pick_cpu']} on the CPU, the inputs {w['inputs_abs_diff']:.3g} "
+            f"apart ({w['inputs_rel_diff']:.3g} rel); running minimum [own "
+            "pick, other's pick] "
+            + "; ".join(f"on the {side}'s inputs {w[side]['v_mine']:.9g}, "
+                        f"{w[side]['v_other']:.9g} (gap {w[side]['gap']:.3g}, "
+                        f"allowed {w[side]['allowed_gap']:.3g}; largest "
+                        f"{w[side]['v_max']:.9g}: its pick "
+                        f"{'right' if w[side]['pick_right'] else 'WRONG'})"
+                        for side in ("card", "cpu")))
+        return
+    log(f"{tag}: {what}, the first kNN row that differs: row {w['row']}, "
+        f"point {w['only_card']} only on the card, {w['only_cpu']} only on "
+        f"the CPU, the inputs of these rows {w['inputs_rel_diff']:.3g} apart "
+        "(rel); their squared distances [card's pick, CPU's pick] "
+        + "; ".join(f"on the {side}'s inputs f32 {w[side]['f32']}, f64 "
+                    f"{w[side]['f64']} (f64 gap {w[side]['rel_gap_f64']:.3g} "
+                    f"rel, its pick {'right' if w[side]['pick_right'] else 'WRONG'} "
+                    f"within {w[side]['slack']:.3g})"
+                    for side in ("card", "cpu")))
+
+
 def phase_scale(torch, report, state, pc):
     """Row 8: the scale kernel against its plain version on centred clouds
     of N_RAGGED points (pc, the first N_RAGGED points of each FPS-sampled
@@ -1548,7 +1733,8 @@ def phase_scale(torch, report, state, pc):
     cfg = ShapePriorConfig(pallas_attention=True)
     model = ShapePrior(cfg, device="cuda")
     model.load_state_dict(state)
-    with torch.inference_mode(), forbid_plain(), record_graphs() as card_graphs:
+    with (torch.inference_mode(), forbid_plain(),
+          record_graphs(keep_inputs=True) as card_graphs):
         codes, launches = counted(lambda: model.encode(pc))
         torch.cuda.synchronize()
     launches = {k: v for k, v in launches.items() if v}
@@ -1564,7 +1750,7 @@ def phase_scale(torch, report, state, pc):
     cpu_model.load_state_dict(state)
     n_cpu = 16
     t0 = time.perf_counter()
-    with torch.inference_mode(), record_graphs() as cpu_graphs:
+    with torch.inference_mode(), record_graphs(keep_inputs=True) as cpu_graphs:
         cpu_codes = cpu_model.encode(pc[:n_cpu].cpu())
     cpu_s = time.perf_counter() - t0
     card_codes = {k: v[:n_cpu].cpu() for k, v in codes.items()}
@@ -1581,8 +1767,10 @@ def phase_scale(torch, report, state, pc):
     # rounding went the other way (phase_knn counts such swaps), the codes
     # may turn further; those clouds are named with the first layer that
     # differs and held to 5e-2 (ICP later pulls such a pair together: the
-    # pipeline's card-against-CPU check holds R to 1e-3). The scales agree
-    # to 1 %.
+    # pipeline's card-against-CPU check holds R to 1e-3), and their first
+    # difference must be a near-tie that each side decided rightly on its
+    # own inputs (knn_tie_witness, fps_tie_witness). The scales agree to
+    # 1 %.
     Rc, _, _ = kabsch_from_codes(card_codes, cpu_codes)
     dR = (Rc - torch.eye(3)).abs().amax(dim=(1, 2))
     first, per_layer = graph_differences(card_graphs.calls, cpu_graphs.calls, n_cpu)
@@ -1591,8 +1779,13 @@ def phase_scale(torch, report, state, pc):
                                  cpu_codes["z_inv"][None])["matches0"][0]
     worst, median = float(dR.max()), float(dR.median())
     worst_same = float(dR[same].max()) if bool(same.any()) else 0.0
-    diverged = {c: {"first_difference": first[c], "max_abs_dR": float(dR[c])}
+    diverged = {c: {"first_difference": first[c], "max_abs_dR": float(dR[c]),
+                    "tie_witness": witness_first_difference(
+                        torch, card_graphs, cpu_graphs, first[c], c)}
                 for c in range(n_cpu) if first[c] is not None}
+    for c, v in diverged.items():
+        log_witness(f"encode {Bn}x{n}", f"cloud {c}", v["tie_witness"])
+    unbacked = [c for c, v in diverged.items() if not v["tie_witness"]["near_tie"]]
     log(f"encode {Bn}x{n}: card vs cpu on clouds 0-{n_cpu - 1}: rotation between "
         f"the codes max|R - I| median {median:.3g}, worst {worst:.3g}; "
         f"{int(same.sum())} clouds with equal graphs in every layer, worst of "
@@ -1604,10 +1797,11 @@ def phase_scale(torch, report, state, pc):
         + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
         + f" (cpu run {cpu_s:.1f} s)")
     if (matched.tolist() != list(range(n_cpu)) or worst_same > 1e-4 or worst > 5e-2
-            or diffs["s"] > 1e-2):
+            or diffs["s"] > 1e-2 or unbacked):
         raise AssertionError(f"encode at N={n}: card and CPU codes differ: matches "
                              f"{matched.tolist()}, dR {dR.tolist()}, first "
-                             f"differences {first}, {diffs}")
+                             f"differences {first}, {diffs}; differences that "
+                             f"no witness backs: clouds {unbacked}")
     diffs.update(equal_graph_clouds=int(same.sum()), max_abs_dR_equal_graphs=worst_same,
                  diverged_clouds=diverged, graph_rows_differing=per_layer)
     diffs.update(median_abs_dR=median, max_abs_dR=worst)
@@ -1918,15 +2112,9 @@ def phase_optim(torch, report, state, profile: bool):
             if not where:
                 continue
             swapped[o] = f"{side} cloud {c}: {where}"
-            kind, _, layer = where.split()
-            if kind != "knn":
-                continue  # an FPS pick: no witness
             start, shift = sides[side]
-            j = next(j for j in range(start, start + half)
-                     if card_graphs.calls[j][:2] == ("knn", int(layer) + shift))
-            witness[o] = knn_tie_witness(
-                torch, *((g.calls[j][2], g.inputs[j]) for g in (card_graphs, cpu_graphs)),
-                c)
+            witness[o] = witness_first_difference(
+                torch, card_graphs, cpu_graphs, where, c, start, shift, start + half)
         dR_obj = (card["R"].cpu() - cpu["R"]).abs().amax((-1, -2))[0]
         dR = float(dR_obj.max())
         dt = float((card["t"].cpu() - cpu["t"]).abs().max())
@@ -1936,7 +2124,7 @@ def phase_optim(torch, report, state, profile: bool):
         checks[name] = {"max_abs_dR": dR, "max_abs_dt": dt,
                         "max_abs_dR_held": dR_held, "graph_differs": swapped,
                         "max_abs_dR_graph_differs": dR_swapped,
-                        "knn_tie_witness": witness}
+                        "tie_witness": witness}
         log(f"{tag}: card vs cpu on scene 0, n_steps={REFINE_CPU_STEPS}, {name}: "
             f"matches0 equal, max|dR| {dR:.3g} (objects held: {dR_held:.3g}), "
             f"max|dt| {dt:.3g}; objects whose clouds' graphs differ, by the "
@@ -1945,30 +2133,23 @@ def phase_optim(torch, report, state, profile: bool):
                          for o, w in swapped.items()) or "none")
             + f" (cpu run {cpu_s:.1f} s)")
         for o, w in witness.items():
-            log(f"{tag}: object {o}, the first kNN row that differs: row {w['row']}, "
-                f"point {w['only_card']} only on the card, {w['only_cpu']} only on "
-                f"the CPU, the inputs of these rows {w['inputs_rel_diff']:.3g} apart "
-                "(rel); their squared distances [card's pick, CPU's pick] "
-                + "; ".join(f"on the {side}'s inputs f32 {w[side]['f32']}, f64 "
-                            f"{w[side]['f64']} (f64 gap {w[side]['rel_gap_f64']:.3g} "
-                            f"rel, its pick {'right' if w[side]['pick_right'] else 'WRONG'} "
-                            f"within {w[side]['slack']:.3g})"
-                            for side in ("card", "cpu")))
+            log_witness(tag, f"object {o}", w)
         # f32 rounding carried through Adam steps, whose normalized update
         # amplifies it: 1e-4 measured after the refinement alone, 4.9e-4
         # after ICP as well (NVIDIA H100 80GB HBM3); the bound is four times
         # the larger. An object whose clouds got a different kNN graph or
         # FPS pick on the two sides starts the refinement from other codes
         # (ROADMAP Queue C): after the refinement alone it is held to 5e-2,
-        # the bound of such clouds' codes in phase_scale, and a kNN swap
-        # must be a near-tie that each side's kNN picked rightly on its own
-        # inputs (knn_tie_witness); after ICP every object is held to 2e-3.
+        # the bound of such clouds' codes in phase_scale, and a kNN or FPS
+        # swap must be a near-tie that each side picked rightly on its own
+        # inputs (knn_tie_witness, fps_tie_witness); after ICP every object
+        # is held to 2e-3.
         bad = [o for o, w in witness.items() if not w["near_tie"]]
         if dR_held > 2e-3 or dR_swapped > 5e-2 or bad:
             raise AssertionError(
                 f"{tag}: {name}: R differs from the CPU run by {dR_held} "
-                f"(objects whose graphs differ: {dR_swapped}); kNN swaps "
-                f"that are no near-tie: {bad}")
+                f"(objects whose graphs differ: {dR_swapped}); kNN or FPS "
+                f"swaps that are no near-tie: {bad}")
     # does the direction pick ever differ between card and CPU?
     with torch.no_grad():
         flips = 0
@@ -2319,9 +2500,11 @@ def stage_times(torch, model, ref, res, mask, profile=False):
 
     with torch.inference_mode():
         fm = mask.reshape(S * O, N)
-        a = timed("fps_front", lambda: (
-            fps_auto(ref.reshape(S * O, N, 3), N_PCL, fm)[0],
-            fps_auto(res.reshape(S * O, N, 3), N_PCL, fm)[0]))
+        # as the pipeline runs it: both sides in one launch
+        both = timed("fps_front", lambda: fps_auto(
+            torch.cat([ref.reshape(S * O, N, 3), res.reshape(S * O, N, 3)]),
+            N_PCL, torch.cat([fm, fm]))[0])
+        a = both[:S * O], both[S * O:]
         codes = timed("encode", lambda: (model.encode(a[0]), model.encode(a[1])))
         m = timed("match", lambda: sequential_matcher(
             codes[0]["z_inv"].reshape(S, O, -1),
@@ -2349,7 +2532,12 @@ def summary_line(report) -> str:
         f"(plain {report[name]['plain_ms']:.2f}, bound {report[name]['bound_ms']:.3f})"
         for name in BWD.values())
     attn = "/".join(f"{row['ms']:.3f}" for row in report["edge_attention"]["shapes"])
-    heads = (f"row 7 {report['edge_attention']['ms']:.3f} ms in 10 launches "
+    knn = "/".join(f"{row['ms']:.3f}" for row in report["knn"]["shapes"][1:])
+    fps = "/".join(f"{row['ms']:.3f}" for row in report["fps"]["shapes"])
+    heads = (f"row 2 {report['knn']['fused_path']['ms']:.3f} ms in 12 launches "
+             f"(layers 1-6 {knn}), row 1 {report['fps']['ms']:.3f} ms in 7 "
+             f"({fps}), "
+             f"row 7 {report['edge_attention']['ms']:.3f} ms in 10 launches "
              f"(layers 2-6 {attn}), row 3 "
              f"{report['icp_stats']['per_launch']['ms']:.5f} ms a launch; "
              f"fused call peak {report['pipeline']['peak_mem_gb']:.3f} GB; ")

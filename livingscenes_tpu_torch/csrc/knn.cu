@@ -2,23 +2,41 @@
 //
 // Replaces the TPU kernel livingscenes_tpu/ops/pallas_knn.py::_knn_kernel.
 // Semantics (shared with livingscenes_tpu_torch/ops/knn.py): the distance
-// is max(|q|^2 - 2 q.p + |p|^2, 0); the k smallest come out ascending, and
-// among equal distances the lower source index comes first.
+// is max(|q|^2 - 2 q.p + |p|^2, 0) in f32; the k smallest come out
+// ascending, and among equal distances the lower source index comes first.
 //
-// What bounds it on the H100: operations. The q.p products are
-// 2 * Nq * Np * D flops per instance (D = 3 * channels, up to 768), against
-// (Nq + Np) * D * 4 bytes of input; the selection adds a few compares per
-// distance. This first version runs the products in plain f32 on the CUDA
-// cores (no TF32: the graph must stay f32-faithful).
-// Design: one block of 256 threads per (instance, 64-query tile). Source
-// tiles of 64 points stream through shared memory in 32-wide chunks of D;
-// each thread accumulates a 4x4 block of dot products, and the norms are
-// summed from the same shared chunks. The 64x64 distance tile is written to
-// shared memory, and four threads per query each scan a quarter of its
-// columns in ascending index order, keeping a sorted top-16 in registers.
-// The list is ordered by (distance, index), so the four partial lists merge
-// exactly: two butterfly exchanges inside the quad, after which every lane
-// holds the query's top 16.
+// What bounds it on the H100: operations. The q.p products are 2 Nq Np D
+// flops per instance (D = 3 * channels, up to 768) against (Nq + Np) D * 4
+// bytes of input. They run in plain f32 on the CUDA cores: TF32 keeps about
+// three decimal digits, and the graph must stay f32-faithful.
+// Design: one block per (instance, QT-query tile).
+// - Source tiles of PT points stream through shared memory in kDC = 16-wide
+//   chunks of D, k-major, by 4-byte cp.async (zero fill past the ragged
+//   edges), double-buffered: the next chunks, of this tile or the next, are
+//   in flight while the present ones are multiplied.
+// - Each thread accumulates an 8 x 8 block of products from four 16-byte
+//   shared-memory loads per step of D: 64 FMAs for 4 loads. SPLIT groups of
+//   threads take every SPLIT-th chunk of D, their sums added in group
+//   order, so a small tile still has 128 threads on its products.
+// - The form by shape, from measurement (PERF.md, PR 6): 128 x 128 tiles
+//   on 256 threads, two blocks an SM; 64 x 128 with D split in two where
+//   fewer than 256 such blocks would fill the card twice (layers 4-5);
+//   32 x 32 split in eight for at most 32 queries among at most 32 sources
+//   (layer 6).
+// - Norms from the staged chunks: |q|^2 in the first source tile only,
+//   |p|^2 once per (query tile, source tile), about 2 % of the products; a
+//   pass of its own would read the sources once more.
+// - Selection after each tile's products: the QT x PT distances go to
+//   shared memory, and two lanes a query each scan every other column in
+//   ascending order, keeping a sorted top-16 of (distance, index) in
+//   registers (knn_select.cuh). A lane's first 16 columns become its list
+//   by a sorting network. A later column passes only if it comes before
+//   the query's present 16th, the earlier of the two lanes' 16ths (exact:
+//   the other lane already holds 16 entries before it); the survivors are
+//   compacted into a bit mask, so a warp runs the insertion chain once per
+//   survivor of its busiest lane, not once per column where any lane has
+//   one. The (distance, index) order makes the two lists merge exactly.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -28,30 +46,144 @@ namespace {
 
 using namespace lstpu_select;
 
-constexpr int kQT = 64;    // queries per block
-constexpr int kPT = 64;    // source points per tile
-constexpr int kDC = 32;    // feature chunk
-constexpr int kThreads = 256;
-constexpr int kDistStride = kPT + 4;
+constexpr int kDC = 16;   // feature chunk
+constexpr int kPad = 4;   // rows stay 16-byte aligned; spreads the cp.async stores
+// Below this many 128-query blocks the card (132 SMs) is filled less than
+// twice over, and 64-query tiles with D split in two do better.
+constexpr int kMinWideBlocks = 256;
 
-__global__ void __launch_bounds__(kThreads)
+template <int QT, int PT, int SPLIT>
+struct Tiles {
+  float q[2][SPLIT][kDC][QT + kPad];
+  float p[2][SPLIT][kDC][PT + kPad];
+  // the sums of split groups 1.. for group 0 to add
+  float partial[SPLIT > 1 ? SPLIT - 1 : 1][SPLIT > 1 ? QT : 1][SPLIT > 1 ? PT : 1];
+  // Two lanes of adjacent rows read columns 2j and 2j + 1: a row stride of
+  // 2 mod 32 puts a warp's 32 reads on 32 banks.
+  float dist[QT][PT + 2];
+  float q2[QT];
+  float p2[PT];
+};
+
+// Stage the SPLIT chunks from c0 on of the query tile and source tile p0
+// into buffer `buf`, transposed to k-major, one 4-byte cp.async an element.
+template <int QT, int PT, int SPLIT>
+__device__ __forceinline__ void stage(Tiles<QT, PT, SPLIT>& s, int buf,
+                                      const float* __restrict__ qb,
+                                      const float* __restrict__ pb, int q0,
+                                      int p0, int c0, int nq, int np, int D,
+                                      int tid, int threads) {
+#pragma unroll 1
+  for (int g = 0; g < SPLIT; ++g) {
+    const int d0 = (c0 + g) * kDC;
+    for (int e = tid; e < QT * kDC; e += threads) {
+      const int r = e / kDC, c = e % kDC;
+      const bool ok = q0 + r < nq && d0 + c < D;
+      const float* src = ok ? qb + (size_t)(q0 + r) * D + d0 + c : qb;
+      __pipeline_memcpy_async(&s.q[buf][g][c][r], src, 4, ok ? 0 : 4);
+    }
+    for (int e = tid; e < PT * kDC; e += threads) {
+      const int r = e / kDC, c = e % kDC;
+      const bool ok = p0 + r < np && d0 + c < D;
+      const float* src = ok ? pb + (size_t)(p0 + r) * D + d0 + c : pb;
+      __pipeline_memcpy_async(&s.p[buf][g][c][r], src, 4, ok ? 0 : 4);
+    }
+  }
+}
+
+// Sort a list of 16 (distance, index) pairs by a bitonic network: 80
+// compare-exchanges, ten deep, in place of 16 insertions of 16 steps each.
+__device__ __forceinline__ void sort_list(float (&td)[kK], int (&ti)[kK]) {
+#pragma unroll
+  for (int size = 2; size <= kK; size *= 2) {
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride /= 2) {
+#pragma unroll
+      for (int i = 0; i < kK; ++i) {
+        const int l = i ^ stride;
+        if (l > i) {
+          const bool up = (i & size) == 0;
+          if (up ? before(td[l], ti[l], td[i], ti[i])
+                 : before(td[i], ti[i], td[l], ti[l])) {
+            const float d = td[i];
+            td[i] = td[l];
+            td[l] = d;
+            const int x = ti[i];
+            ti[i] = ti[l];
+            ti[l] = x;
+          }
+        }
+      }
+    }
+  }
+}
+
+// One lane's share of a tile's selection: columns half, half + 2, ... of
+// its query's row (ascending source index), filtered against the query's
+// present 16th, the survivors inserted in ascending order. In the first
+// tile the lane's first 16 columns are its list at once, sorted, so the
+// filter has a threshold from the start.
+template <int PT>
+__device__ __forceinline__ void select_tile(const float* drow, int p0,
+                                            int n_valid, int half,
+                                            float (&td)[kK], int (&ti)[kK]) {
+  int j0 = 0;
+  if (p0 == 0 && n_valid >= 2 * kK) {
+#pragma unroll
+    for (int m = 0; m < kK; ++m) {
+      td[m] = drow[2 * m + half];
+      ti[m] = 2 * m + half;
+    }
+    sort_list(td, ti);
+    j0 = kK;
+  }
+  float cd = td[kK - 1];
+  int ci = ti[kK - 1];
+  const float od = __shfl_xor_sync(0xffffffffu, cd, 1);
+  const int oi = __shfl_xor_sync(0xffffffffu, ci, 1);
+  if (before(od, oi, cd, ci)) {
+    cd = od;
+    ci = oi;
+  }
+  unsigned long long pass = 0;
+#pragma unroll
+  for (int j = 0; j < PT / 2; ++j) {
+    const int c = 2 * j + half;
+    if (j >= j0 && c < n_valid && before(drow[c], p0 + c, cd, ci))
+      pass |= 1ull << j;
+  }
+  while (pass != 0) {
+    const int c = 2 * (__ffsll((long long)pass) - 1) + half;
+    pass &= pass - 1;
+    insert(td, ti, drow[c], p0 + c);
+  }
+}
+
+template <int QT, int PT, int SPLIT, int MIN_BLOCKS>
+__global__ void __launch_bounds__((QT / 8) * (PT / 8) * SPLIT, MIN_BLOCKS)
     knn_kernel(const float* __restrict__ q, const float* __restrict__ p,
                float* __restrict__ out_d, int32_t* __restrict__ out_i, int nq,
                int np, int D, int k) {
+  constexpr int kGroup = (QT / 8) * (PT / 8);  // threads a split group
+  constexpr int kThreads = kGroup * SPLIT;
+  constexpr int kP2Rows = (PT + kThreads - 1) / kThreads;
+  static_assert(kThreads >= 2 * QT && (2 * QT) % 32 == 0,
+                "two selection lanes a query, whole warps");
+  extern __shared__ __align__(16) float tiles_raw[];
+  Tiles<QT, PT, SPLIT>& s = *reinterpret_cast<Tiles<QT, PT, SPLIT>*>(tiles_raw);
   const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kQT;
+  const int q0 = blockIdx.x * QT;
   const float* qb = q + (size_t)b * nq * D;
   const float* pb = p + (size_t)b * np * D;
-
-  __shared__ float qs[kQT][kDC + 1];
-  __shared__ float ps[kPT][kDC + 1];
-  __shared__ float dist[kQT][kDistStride];
-  __shared__ float q2s[kQT];
-  __shared__ float p2s[kPT];
-
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;  // 4x4 dot-product block
-  const int row = tid >> 2, sub = tid & 3;  // selection: 4 lanes a query
+  // products: split group `grp`; rows ty*4 + {0..3} and QT/2 + ty*4 +
+  // {0..3}, columns tx*4 + {0..3} and PT/2 + tx*4 + {0..3}
+  const int grp = SPLIT == 1 ? 0 : tid / kGroup;
+  const int gt = SPLIT == 1 ? tid : tid % kGroup;
+  const int tx = gt % (PT / 8), ty = gt / (PT / 8);
+  // selection: two lanes a query, in the first 2 QT threads
+  const bool selects = kThreads == 2 * QT || tid < 2 * QT;
+  const int row = tid >> 1, half = tid & 1;
 
   float td[kK];
   int ti[kK];
@@ -60,77 +192,114 @@ __global__ void __launch_bounds__(kThreads)
     td[m] = INFINITY;
     ti[m] = 0x7fffffff;
   }
+  float acc[8][8];
+  float q2_acc = 0.0f;
+  float p2_acc[kP2Rows];
 
-  for (int p0 = 0; p0 < np; p0 += kPT) {
-    float acc[4][4];
+  const int n_chunks = (D + kDC - 1) / kDC;
+  const int steps = (n_chunks + SPLIT - 1) / SPLIT;  // a source tile's
+  const int total = steps * ((np + PT - 1) / PT);
+  stage(s, 0, qb, pb, q0, 0, 0, nq, np, D, tid, kThreads);
+  __pipeline_commit();
+  for (int g = 0; g < total; ++g) {
+    const int tile = g / steps, step = g % steps;
+    if (g + 1 < total)
+      stage(s, (g + 1) & 1, qb, pb, q0, ((g + 1) / steps) * PT,
+            ((g + 1) % steps) * SPLIT, nq, np, D, tid, kThreads);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);
+    __syncthreads();
+    const int buf = g & 1;
+    if (step == 0) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
-    float q2_part = 0.0f, p2_part = 0.0f;
-
-    for (int d0 = 0; d0 < D; d0 += kDC) {
-      for (int e = tid; e < kQT * kDC; e += kThreads) {
-        const int r = e / kDC, c = e % kDC;
-        const int qi = q0 + r, d = d0 + c;
-        qs[r][c] = (qi < nq && d < D) ? qb[(size_t)qi * D + d] : 0.0f;
-        const int pi = p0 + r;
-        ps[r][c] = (pi < np && d < D) ? pb[(size_t)pi * D + d] : 0.0f;
-      }
-      __syncthreads();
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 #pragma unroll
-      for (int m = 0; m < kDC / 4; ++m) {
-        const float qv = qs[row][sub + 4 * m];
-        const float pv = ps[row][sub + 4 * m];
-        q2_part += qv * qv;
-        p2_part += pv * pv;
-      }
-#pragma unroll 8
-      for (int c = 0; c < kDC; ++c) {
-        float a[4], bb[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[r] = qs[ty + 16 * r][c];
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) bb[cc] = ps[tx + 16 * cc][c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) acc[r][cc] += a[r] * bb[cc];
-      }
-      __syncthreads();
+      for (int rr = 0; rr < kP2Rows; ++rr) p2_acc[rr] = 0.0f;
     }
-    // Norms: the four lanes of a quad hold strided partial sums of one row.
-    q2_part += __shfl_xor_sync(0xffffffffu, q2_part, 1);
-    q2_part += __shfl_xor_sync(0xffffffffu, q2_part, 2);
-    p2_part += __shfl_xor_sync(0xffffffffu, p2_part, 1);
-    p2_part += __shfl_xor_sync(0xffffffffu, p2_part, 2);
-    if (sub == 0) {
-      q2s[row] = q2_part;
-      p2s[row] = p2_part;
+    if (tile == 0 && tid < QT) {
+#pragma unroll
+      for (int sg = 0; sg < SPLIT; ++sg)
+#pragma unroll
+        for (int c = 0; c < kDC; ++c) {
+          const float v = s.q[buf][sg][c][tid];
+          q2_acc += v * v;
+        }
+    }
+#pragma unroll
+    for (int rr = 0; rr < kP2Rows; ++rr) {
+      const int r = tid + rr * kThreads;
+      if (r < PT) {
+#pragma unroll
+        for (int sg = 0; sg < SPLIT; ++sg)
+#pragma unroll
+          for (int c = 0; c < kDC; ++c) {
+            const float v = s.p[buf][sg][c][r];
+            p2_acc[rr] += v * v;
+          }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kDC; ++c) {
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(&s.q[buf][grp][c][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&s.q[buf][grp][c][QT / 2 + ty * 4]);
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(&s.p[buf][grp][c][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&s.p[buf][grp][c][PT / 2 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * bv[j];
     }
     __syncthreads();
+    if (step != steps - 1) continue;
+
+    // The tile's distances, then its selection. The next chunks' copies
+    // are in flight meanwhile; the dist tile is next written after the
+    // next tile's barriers, which every lane passes after selecting.
+    if (SPLIT > 1 && grp > 0) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const int qr = ty + 16 * r, pc = tx + 16 * cc;
-        const float d = q2s[qr] - 2.0f * acc[r][cc] + p2s[pc];
-        dist[qr][pc] = p0 + pc < np ? fmaxf(d, 0.0f) : INFINITY;
+        for (int j = 0; j < 8; ++j)
+          s.partial[grp - 1][(i < 4 ? 0 : QT / 2 - 4) + ty * 4 + i]
+                   [(j < 4 ? 0 : PT / 2 - 4) + tx * 4 + j] = acc[i][j];
+    }
+    if (tile == 0 && tid < QT) s.q2[tid] = q2_acc;
+#pragma unroll
+    for (int rr = 0; rr < kP2Rows; ++rr)
+      if (tid + rr * kThreads < PT) s.p2[tid + rr * kThreads] = p2_acc[rr];
+    __syncthreads();
+    if (grp == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int qr = (i < 4 ? 0 : QT / 2 - 4) + ty * 4 + i;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int pc = (j < 4 ? 0 : PT / 2 - 4) + tx * 4 + j;
+          float dot = acc[i][j];
+#pragma unroll
+          for (int sg = 0; sg < SPLIT - 1; ++sg) dot += s.partial[sg][qr][pc];
+          const float d = s.q2[qr] - 2.0f * dot + s.p2[pc];
+          s.dist[qr][pc] = fmaxf(d, 0.0f);
+        }
       }
     }
     __syncthreads();
-    // Ascending column order inside each lane keeps the index tie-break.
-#pragma unroll
-    for (int m = 0; m < kPT / 4; ++m) {
-      const int c = sub + 4 * m;
-      if (p0 + c < np) insert(td, ti, dist[row][c], p0 + c);
-    }
+    const int p0 = tile * PT;
+    if (selects) select_tile<PT>(s.dist[row], p0, min(PT, np - p0), half, td, ti);
   }
 
+  if (!selects) return;
   merge_partner(td, ti, 1);
-  merge_partner(td, ti, 2);
   const int qi = q0 + row;
-  if (sub == 0 && qi < nq) {
+  if (half == 0 && qi < nq) {
     float* od = out_d + ((size_t)b * nq + qi) * k;
     int32_t* oi = out_i + ((size_t)b * nq + qi) * k;
 #pragma unroll
@@ -143,20 +312,50 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int QT, int PT, int SPLIT, int MIN_BLOCKS = 1>
+int launch(const float* q, const float* p, float* out_d, int32_t* out_i,
+           int B, int nq, int np, int D, int k, cudaStream_t stream) {
+  const int bytes = (int)sizeof(Tiles<QT, PT, SPLIT>);
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_kernel<QT, PT, SPLIT, MIN_BLOCKS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((nq + QT - 1) / QT, B);
+  knn_kernel<QT, PT, SPLIT, MIN_BLOCKS><<<grid, (QT / 8) * (PT / 8) * SPLIT,
+                                          bytes, stream>>>(
+      q, p, out_d, out_i, nq, np, D, k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q (B, nq, D), p (B, np, D) f32; out_d (B, nq, k) f32, out_i (B, nq, k)
-// int32; 1 <= k <= min(16, np).
+// int32; 1 <= k <= min(16, np). form: 1 for 128 x 128 tiles, 2 for 64 x 128
+// with D split in two, 3 for 32 x 32 split in eight, 0 for the choice by
+// shape.
 extern "C" int lstpu_knn(const void* q, const void* p, void* out_d,
                          void* out_i, int B, int nq, int np, int D, int k,
-                         void* stream) {
-  if (B <= 0 || nq <= 0 || np <= 0 || D <= 0 || k <= 0 || k > kK || k > np)
+                         int form, void* stream) {
+  if (B <= 0 || nq <= 0 || np <= 0 || D <= 0 || k <= 0 || k > kK || k > np ||
+      form < 0 || form > 3)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((nq + kQT - 1) / kQT, B);
-  knn_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(p),
-      static_cast<float*>(out_d), static_cast<int32_t*>(out_i), nq, np, D, k);
-  return (int)cudaGetLastError();
+  if (form == 0) {
+    if (nq <= 32 && np <= 32)
+      form = 3;
+    else
+      form = B * ((nq + 127) / 128) >= kMinWideBlocks ? 1 : 2;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* qf = static_cast<const float*>(q);
+  const float* pf = static_cast<const float*>(p);
+  float* od = static_cast<float*>(out_d);
+  int32_t* oi = static_cast<int32_t*>(out_i);
+  switch (form) {
+    // two blocks an SM: at most 128 registers, a few spilled
+    case 1: return launch<128, 128, 1, 2>(qf, pf, od, oi, B, nq, np, D, k, s);
+    case 2: return launch<64, 128, 2>(qf, pf, od, oi, B, nq, np, D, k, s);
+    default: return launch<32, 32, 8>(qf, pf, od, oi, B, nq, np, D, k, s);
+  }
 }
 
 extern "C" int lstpu_knn_max_k() { return kK; }

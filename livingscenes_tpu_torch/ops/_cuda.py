@@ -43,8 +43,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "lstpu_fps": [_P, _P, _P, _I, _I, _I, _P],
-    "lstpu_knn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "lstpu_fps": [_P] * 5 + [_I] * 4 + [_P],
+    "lstpu_knn": [_P] * 4 + [_I] * 6 + [_P],
     "lstpu_icp_stats": [_P] * 7 + [_I] * 3 + [_P],
     "lstpu_knn_topk": [_P, _P, _P, _I, _I, _I, _I, _P],
     "lstpu_layer0_edge_mean": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
@@ -57,7 +57,7 @@ _SIGNATURES = {
     "lstpu_layer0_edge_mean_bwd": [_P] * 9 + [_I] * 4 + [_F, _P],
     "lstpu_edge_mean_bwd": [_P] * 12 + [_I] * 6 + [_F, _P],
     "lstpu_edge_attention_bwd": [_P] * 17 + [_I] * 7 + [_F, _P],
-    "lstpu_fps_max_points": [],
+    "lstpu_fps_tail_points": [_I, _I],
     "lstpu_knn_max_k": [],
     "lstpu_icp_stats_block": [],
     "lstpu_knn_topk_tile": [],

@@ -16,9 +16,12 @@ launches = 0  # knn.cu launches since the count was last set to 0
 topk_launches = 0  # knn_topk.cu launches since the count was last set to 0
 
 
-def knn_cuda(query: torch.Tensor, points: torch.Tensor, k: int):
+def knn_cuda(query: torch.Tensor, points: torch.Tensor, k: int, form: int = 0):
     """(dists (B, Nq, k) float32, idx (B, Nq, k) int32) from the kernel.
-    query (B, Nq, D), points (B, Np, D), float32 on the card."""
+    query (B, Nq, D), points (B, Np, D), float32 on the card. `form`: the
+    kernel's tiling (1: 128 queries x 128 sources a block; 2: 64 x 128, D
+    split over two thread groups; 3: 32 x 32, D split in eight; 0: the
+    kernel's choice by shape)."""
     global launches
     _cuda.require_cuda("knn", query, points, dtype=torch.float32)
     B, Nq, D = query.shape
@@ -30,11 +33,13 @@ def knn_cuda(query: torch.Tensor, points: torch.Tensor, k: int):
     lib = _cuda.lib()
     if not 1 <= k <= min(lib.lstpu_knn_max_k(), Np):
         raise ValueError(f"knn: k={k} outside [1, min(16, {Np})]")
+    if form not in (0, 1, 2, 3):
+        raise ValueError(f"knn: form={form} is not 0-3")
     dists = torch.empty((B, Nq, k), dtype=torch.float32, device=query.device)
     idx = torch.empty((B, Nq, k), dtype=torch.int32, device=query.device)
     err = lib.lstpu_knn(
         query.data_ptr(), points.data_ptr(), dists.data_ptr(), idx.data_ptr(),
-        B, Nq, Np, D, k, _cuda.stream_ptr(query),
+        B, Nq, Np, D, k, form, _cuda.stream_ptr(query),
     )
     _cuda.check(err, "knn")
     launches += 1

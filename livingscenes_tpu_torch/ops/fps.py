@@ -20,14 +20,15 @@ def sqdist_to(points: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
 
 
 def farthest_point_sampling(
-    points: torch.Tensor, k: int, mask: torch.Tensor | None = None
+    points: torch.Tensor, k: int, mask: torch.Tensor | None = None,
+    start_idx: torch.Tensor | int = 0,
 ):
     """Sample `k` farthest points of each (B, N, 3) cloud.
 
-    Starts at index 0; each round picks the first index of the maximum
-    of the running minimum squared distance. Invalid points (mask False)
-    are never picked while a valid one is left; with fewer than k valid
-    points the tail repeats already-selected points.
+    Starts at `start_idx` (an int or (B,) indices); each round picks the
+    first index of the maximum of the running minimum squared distance.
+    Invalid points (mask False) are never picked while a valid one is left;
+    with fewer than k valid points the tail repeats already-selected points.
 
     Returns (sampled (B, k, 3), idx (B, k) int64).
     """
@@ -39,6 +40,7 @@ def farthest_point_sampling(
         mask, torch.full_like(neg, _BIG), neg
     ).expand(B, N).clone()
     idx = torch.zeros((B, k), dtype=torch.long, device=points.device)
+    idx[:, 0] = torch.as_tensor(start_idx, device=points.device)
     rows = torch.arange(B, device=points.device)
     for i in range(k - 1):
         last = points[rows, idx[:, i]]

@@ -56,9 +56,14 @@ def build_scene_pair_pipeline(model, cfg: PipelineConfig = PipelineConfig()):
         flat_ref = ref_pc.reshape(S * O, N, 3)
         flat_res = rescan_pc.reshape(S * O, N, 3)
         if cfg.encode_fps:
-            k = model.config.n_pcl
-            flat_ref, _ = fps_auto(flat_ref, k, mask=_flat_mask(ref_mask, dev, S * O, N))
-            flat_res, _ = fps_auto(flat_res, k, mask=_flat_mask(rescan_mask, dev, S * O, N))
+            # both sides in one batch: one FPS launch over twice the clouds
+            masks = [_flat_mask(m, dev, S * O, N) for m in (ref_mask, rescan_mask)]
+            mask = None if all(m is None for m in masks) else torch.cat([
+                torch.ones((S * O, N), dtype=torch.bool, device=dev) if m is None
+                else m for m in masks])
+            sampled, _ = fps_auto(torch.cat([flat_ref, flat_res]),
+                                  model.config.n_pcl, mask=mask)
+            flat_ref, flat_res = sampled[:S * O], sampled[S * O:]
         codes_ref = model.encode(flat_ref)
         codes_res = model.encode(flat_res)
 

@@ -147,6 +147,26 @@ def test_fps_matches_jax_ties_and_tail(rng):
     assert int(idx.max()) < 20  # an invalid point is never picked
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_fps_start_idx_matches_jax(rng, masked):
+    # a (B,) start index and an int one, as JAX's start_idx takes them
+    pts = rng.normal(size=(6, 200, 3)).astype(np.float32)
+    mask = rng.random((6, 200)) > 0.3 if masked else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    tmask = None if mask is None else t(mask)
+    start = np.array([0, 5, 199, 73, 120, 1], np.int32)
+    for s in (start, 17):
+        _, i_ref = jfps(jnp.asarray(pts), 48, mask=jmask,
+                        start_idx=jnp.asarray(s) if np.ndim(s) else s)
+        s_t = t(s) if np.ndim(s) else s
+        _, i_t = farthest_point_sampling(t(pts), 48, tmask, start_idx=s_t)
+        np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_ref))
+        sampled, i_a = fps_auto(t(pts), 48, tmask, start_idx=s_t)
+        np.testing.assert_array_equal(i_a.numpy(), np.asarray(i_ref))
+        np.testing.assert_array_equal(
+            sampled.numpy(), np.take_along_axis(pts, i_a.numpy()[..., None], 1))
+
+
 def test_fps_f64_matches_jax(rng):
     pts = rng.normal(size=(3, 200, 3))
     _, i_ref = jfps(jnp.asarray(pts), 50)

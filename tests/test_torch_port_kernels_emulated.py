@@ -6,9 +6,10 @@ There is no card and no nvcc where these tests run, so the kernels' own code
 stand-in for the CUDA runtime (CUDA_RUNTIME_STAND_IN below, written out as
 the `cuda_runtime.h` the sources include: blocks one after another, a
 block's threads as OS threads, barriers for __syncthreads and the warp
-shuffles, dynamic shared memory poisoned with NaN). Only the launches `kernel<<<grid, block, shared, stream>>>(...)` and
-the `extern __shared__` declarations are rewritten; atomicAdd is a
-compare-and-swap loop. The port's real
+shuffles, dynamic shared memory poisoned with NaN; the warp reductions,
+cp.async and its waits). Only the launches
+`kernel<<<grid, block, shared, stream>>>(...)` and the `extern __shared__`
+declarations are rewritten; atomicAdd is a compare-and-swap loop. The port's real
 wrappers then call the emulated library on CPU tensors, so their argument
 preparation (layouts, transposes, the dst halves) is covered too.
 
@@ -23,7 +24,9 @@ holds every kernel against its plain version at the main path's shapes
 and at small ragged ones.
 
 Tolerances: FPS and kNN indices equal (the inputs are exact in f32 where
-ties occur); ICP statistics rtol 1e-4; the fused edge layers rtol 2e-4 plus
+ties occur; random reals have no near-ties at these sizes), kNN distances
+equal on exact inputs and within rtol 1e-5 plus atol 1e-5 of the largest on
+random reals (another summation order than the plain matmul); ICP statistics rtol 1e-4; the fused edge layers rtol 2e-4 plus
 atol 2e-5 of the largest magnitude, as on the card, and their backward
 kernels against autograd of the plain versions the same (the kernels add
 the scatter and the weight gradients with atomics, in no fixed order); the scale statistic rtol
@@ -167,6 +170,27 @@ inline void launch(dim3 grid, dim3 block, size_t shared_bytes,
   dynamic_shared = nullptr;
 }
 
+// Every lane's v folded with `op` over the warp's lanes, for each lane.
+template <class T, class Op>
+inline T warp_reduce(T v, Op op) {
+  static_assert(sizeof(T) <= sizeof(uint64_t));
+  const int t = thread_idx.x, w = t / 32;
+  const int lanes = std::min(32, (int)block_dim.x - 32 * w);
+  uint64_t raw = 0;
+  std::memcpy(&raw, &v, sizeof(T));
+  warp_slots[t] = raw;
+  warp_barrier[w]->arrive_and_wait();
+  T out;
+  std::memcpy(&out, &warp_slots[w * 32], sizeof(T));
+  for (int l = 1; l < lanes; ++l) {
+    T other;
+    std::memcpy(&other, &warp_slots[w * 32 + l], sizeof(T));
+    out = op(out, other);
+  }
+  warp_barrier[w]->arrive_and_wait();
+  return out;
+}
+
 template <class T>
 inline T exchange(T v, int source_lane) {
   static_assert(sizeof(T) <= sizeof(uint64_t));
@@ -206,6 +230,32 @@ template <class T>
 inline T __shfl_sync(unsigned, T v, int lane) {
   return cuda_emulation::exchange(v, lane);
 }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  cuda_emulation::warp_barrier[threadIdx.x / 32]->arrive_and_wait();
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  return cuda_emulation::warp_reduce(v, [](unsigned a, unsigned b) { return std::max(a, b); });
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  return cuda_emulation::warp_reduce(v, [](unsigned a, unsigned b) { return std::min(a, b); });
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, sizeof u);
+  return u;
+}
+inline int __ffsll(long long x) { return __builtin_ffsll(x); }
+// cp.async through the pipeline primitives of <cuda_pipeline.h>: here a
+// copy done at once, with the zero fill of the last `zfill` bytes; commit
+// and wait have nothing left to do. A kernel that reads a buffer before
+// its wait and barrier is not caught.
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t size,
+                                    size_t zfill = 0) {
+  std::memcpy(dst, src, size - zfill);
+  std::memset(static_cast<char*>(dst) + size - zfill, 0, zfill);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 '''
 
 
@@ -233,8 +283,8 @@ def rewrite_for_host(text):
         return (f"cuda_emulation::launch({grid}, {block}, {shared}, "
                 f"[&] {{ {m.group(1)}({m.group(3)}); }});")
 
-    return re.sub(r"([\w:]+(?:<\w+>)?)<<<(.*?)>>>\(\s*(.*?)\);", launch, text,
-                  flags=re.S)
+    return re.sub(r"([\w:]+(?:<[\w, ]+>)?)<<<(.*?)>>>\(\s*(.*?)\);", launch,
+                  text, flags=re.S)
 
 
 @pytest.fixture(scope="module")
@@ -245,6 +295,8 @@ def emulated(tmp_path_factory):
         pytest.skip("no g++ to build the kernels for the host")
     work = tmp_path_factory.mktemp("cuda_emulation")
     (work / "cuda_runtime.h").write_text(CUDA_RUNTIME_STAND_IN)
+    # the pipeline primitives (cp.async) are in the same stand-in
+    (work / "cuda_pipeline.h").write_text('#pragma once\n#include "cuda_runtime.h"\n')
     for path in _cuda.CSRC.iterdir():
         name = path.name.replace(".cu", ".cpp") if path.suffix == ".cu" else path.name
         (work / name).write_text(rewrite_for_host(path.read_text()))
@@ -292,11 +344,13 @@ def assert_close(got, want):
 def test_rewrite_for_host():
     src = ("extern __shared__ __align__(16) float smem[];\n"
            "k<8><<<dim3(a, b), kT, n * sizeof(float),\n"
-           "       static_cast<cudaStream_t>(s)>>>(x, f(y, z));\n")
+           "       static_cast<cudaStream_t>(s)>>>(x, f(y, z));\n"
+           "g<P, CW><<<B, 32 * CW, bytes, st>>>(x);\n")
     out = rewrite_for_host(src)
     assert "float* smem = cuda_emulation::dynamic_shared;" in out
     assert ("cuda_emulation::launch(dim3(a, b), kT, n * sizeof(float), "
             "[&] { k<8>(x, f(y, z)); });") in out
+    assert "cuda_emulation::launch(B, 32 * CW, bytes, [&] { g<P, CW>(x); });" in out
     assert "<<<" not in out
 
 
@@ -313,6 +367,66 @@ def test_fps_kernel(on_host, N, k, masked):
     assert torch.equal(got.long(), want)
 
 
+@pytest.mark.parametrize(
+    "B,N,k,warps",
+    [
+        (6, 100, 30, 1),    # the warp form: four clouds a block, then two
+        (3, 300, 64, 2),    # block forms
+        (2, 1000, 40, 4),
+        (2, 200, 30, 16),   # most of the block's threads without a point
+    ],
+)
+def test_fps_kernel_forms(on_host, B, N, k, warps):
+    rng = np.random.default_rng(16)
+    pts = f32(rng, B, N, 3)
+    mask = torch.as_tensor(rng.random((B, N)) > 0.3)
+    mask[1, k // 2:] = False  # fewer valid points than k
+    mask[0, 1:] = False       # a single valid point
+    for m in (None, mask):
+        got = cuda_fps.fps_cuda(pts, k, m, warps=warps)
+        want = farthest_point_sampling(pts, k, m)[1]
+        assert torch.equal(got.long(), want)
+
+
+@pytest.mark.parametrize("warps", [0, 1, 4])
+def test_fps_kernel_start(on_host, warps):
+    rng = np.random.default_rng(17)
+    pts = f32(rng, 5, 120, 3)
+    mask = torch.as_tensor(rng.random((5, 120)) > 0.2)
+    start = torch.as_tensor([0, 7, 119, 50, 3], dtype=torch.int32)
+    got = cuda_fps.fps_cuda(pts, 40, mask, start, warps=warps)
+    want = farthest_point_sampling(pts, 40, mask, start_idx=start)[1]
+    assert torch.equal(got.long(), want)
+    assert torch.equal(got[:, 0], start)
+
+
+def test_fps_front_end_stacked(on_host):
+    # the pipeline's front end: both sides of the scene pairs in one launch
+    rng = np.random.default_rng(18)
+    ref, res = f32(rng, 3, 400, 3), f32(rng, 3, 400, 3)
+    m_ref = torch.as_tensor(rng.random((3, 400)) > 0.4)
+    both = cuda_fps.fps_cuda(torch.cat([ref, res]), 64,
+                             torch.cat([m_ref, torch.ones_like(m_ref)]))
+    apart = [cuda_fps.fps_cuda(ref, 64, m_ref), cuda_fps.fps_cuda(res, 64)]
+    assert torch.equal(both, torch.cat(apart))
+    assert torch.equal(both[:3].long(), farthest_point_sampling(ref, 64, m_ref)[1])
+
+
+def test_fps_kernel_beyond_register_points(on_host):
+    # 8500 points: 8192 in registers, 308 re-read every round with their
+    # running minimum in scratch; the old kernel refused N > 8192
+    rng = np.random.default_rng(19)
+    pts = f32(rng, 2, 8500, 3)
+    pts[:, 8200:] *= 3.0  # far points past the registers: picked early
+    mask = torch.ones((2, 8500), dtype=torch.bool)
+    mask[1, 8300:] = False
+    assert cuda_fps._cuda.lib().lstpu_fps_tail_points(8500, 0) == 308
+    got = cuda_fps.fps_cuda(pts, 40, mask)
+    want = farthest_point_sampling(pts, 40, mask)[1]
+    assert torch.equal(got.long(), want)
+    assert int(want.max()) >= 8192
+
+
 @pytest.mark.parametrize("Nq,Np,D,k", [(70, 100, 3, 16), (33, 150, 48, 16), (20, 20, 96, 7)])
 def test_knn_kernel(on_host, Nq, Np, D, k):
     rng = np.random.default_rng(1)
@@ -323,6 +437,34 @@ def test_knn_kernel(on_host, Nq, Np, D, k):
     dp, ip = knn(q, p, k)
     assert torch.equal(ik.long(), ip)
     assert torch.equal(dk, dp)
+
+
+@pytest.mark.parametrize("form", [1, 2, 3])
+@pytest.mark.parametrize(
+    "Nq,Np,D,k",
+    [
+        (70, 300, 50, 16),  # a partial query tile, three source tiles, D % 16
+        (40, 12, 21, 10),   # fewer sources than 16, k < 16
+        (32, 128, 48, 16),  # the shape of layer 5
+        (20, 33, 200, 16),  # two 32-source tiles, 13 chunks over 8 groups
+        (128, 200, 24, 5),  # layer 4's query count, k < 16
+    ],
+)
+def test_knn_kernel_forms(on_host, form, Nq, Np, D, k):
+    rng = np.random.default_rng(15)
+    # small integers, exact: ties within and across the lanes and tiles
+    p = torch.as_tensor(rng.integers(-2, 3, (2, Np, D)).astype(np.float32))
+    q = torch.as_tensor(rng.integers(-2, 3, (2, Nq, D)).astype(np.float32))
+    dk, ik = cuda_knn.knn_cuda(q, p, k, form)
+    dp, ip = knn(q, p, k)
+    assert torch.equal(ik.long(), ip)
+    assert torch.equal(dk, dp)
+    # random reals: the filter against the query's 16th, no exact ties
+    pr, qr = f32(rng, 2, Np, D), f32(rng, 2, Nq, D)
+    dk, ik = cuda_knn.knn_cuda(qr, pr, k, form)
+    dp, ip = knn(qr, pr, k)
+    assert torch.equal(ik.long(), ip)
+    torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-5 * float(dp.max()))
 
 
 @pytest.mark.parametrize("N,k,tied", [(100, 16, False), (256, 16, True), (20, 5, False)])

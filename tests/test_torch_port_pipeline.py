@@ -108,6 +108,25 @@ def test_scene_pair_pipeline_fused_icp_one_iteration_matches_jax(params):
     np.testing.assert_allclose(out_t["t"].numpy(), out_j["t"], atol=1e-4)
 
 
+def test_stacked_fps_front_end_matches_jax(params):
+    # the port samples both sides of the scene pairs in one FPS call; each
+    # side must get JAX's picks, with a mask on one side only
+    from livingscenes_tpu.ops.fps import farthest_point_sampling as jfps
+
+    ref, rescan, mask, _ = make_scenes(0)
+    m = port_model(params)
+    seen = []
+    encode = m.encode
+    m.encode = lambda pc: seen.append(pc.clone()) or encode(pc)
+    build_scene_pair_pipeline(m, PipelineConfig(encode_fps=True, registration=RegistrationConfig(
+        icp_iterations=1)))(ref, rescan, mask, None)
+    k = SMALL["n_pcl"]
+    for got, pts, msk in ((seen[0], ref, mask), (seen[1], rescan, None)):
+        want, _ = jfps(jnp.asarray(pts.reshape(S * O, N, 3)), k,
+                       mask=None if msk is None else jnp.asarray(msk.reshape(S * O, N)))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_registration_kabsch_and_accept_rules(params):
     rng = np.random.default_rng(5)
     m = port_model(params)
