@@ -25,7 +25,7 @@
 //   to shared memory (double-buffered by round parity: one barrier a
 //   round) and every warp reduces the posts the same way.
 // - A thread's best over its slots by a tree, not a chain of compares.
-// - The form by N, from measurement (PERF.md, PR 6; choose_warps).
+// - The form by N, from measurement (PERF.md; choose_warps).
 // - No global load on the chain: the points held in registers are also
 //   copied to shared memory, where each round reads the winner's
 //   coordinates.
@@ -211,8 +211,9 @@ int points_per_thread(int n, int warps) {
 }
 
 // The form by n, the fastest of the forms measured at the main path's
-// shapes on the H100 (PERF.md, PR 6): 128 points on four warps, 512 on
-// one, 1024 on four, 4096 on eight; past that the most threads.
+// shapes on the H100 (PERF.md, kernel table row 1): 128 points on four
+// warps, 512 on one, 1024 on four, 4096 on eight; past that the most
+// threads.
 int choose_warps(int n) {
   if (n <= 128) return 4;
   if (n <= 512) return 1;

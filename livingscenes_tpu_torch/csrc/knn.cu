@@ -18,11 +18,11 @@
 //   shared-memory loads per step of D: 64 FMAs for 4 loads. SPLIT groups of
 //   threads take every SPLIT-th chunk of D, their sums added in group
 //   order, so a small tile still has 128 threads on its products.
-// - The form by shape, from measurement (PERF.md, PR 6): 128 x 128 tiles
-//   on 256 threads, two blocks an SM; 64 x 128 with D split in two where
-//   fewer than 256 such blocks would fill the card twice (layers 4-5);
-//   32 x 32 split in eight for at most 32 queries among at most 32 sources
-//   (layer 6).
+// - The form by shape, from measurement (PERF.md, kernel table row 2):
+//   128 x 128 tiles on 256 threads, two blocks an SM; 64 x 128 with D
+//   split in two where fewer than 256 such blocks would fill the card
+//   twice (layers 4-5); 32 x 32 split in eight for at most 32 queries
+//   among at most 32 sources (layer 6).
 // - Norms from the staged chunks: |q|^2 in the first source tile only,
 //   |p|^2 once per (query tile, source tile), about 2 % of the products; a
 //   pass of its own would read the sources once more.

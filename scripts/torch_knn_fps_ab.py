@@ -20,8 +20,8 @@ its kernels, and prints one JSON line (also written to FILE):
   plain version or not; where the wrapper takes `warps`, the ms of each
   form (warps a cloud).
 
-Run two checkouts in one call, in turns (parent, change, change, parent),
-to compare them on one card. `ms`: CUDA events around back-to-back calls
+To compare two checkouts, run both on one card in turns (parent, change,
+change, parent). `ms`: CUDA events around back-to-back calls
 of the wrapper after a warm-up (host-paced where the kernel is shorter
 than the wrapper's host time); `graph_ms`: the kernel's device time, from
 20 calls captured in a CUDA graph and replayed.
