@@ -12,16 +12,22 @@
    the same function, and the least time the card could take (the bound).
    The fused edge layers (layer 0, mean edge, attention at its five layer
    shapes) get the trained weights and the activations of a plain forward
-   of the trained model; attention is timed whole and its per-point
-   products alone, beside the bytes its edge pass gathers. The ICP
-   statistics kernel is timed by CUDA graph replays (its wrapper's host
-   time outlasts it) and must give the same bits on a second launch. FPS
+   of the trained model; the mean edge and attention layers are timed
+   whole and their per-point products alone, beside the bytes their edge
+   passes gather. The kNN + scale, mean edge, ICP statistics, kNN and FPS
+   kernels are timed by CUDA graph replays (their wrappers' host time
+   would show), and the ICP statistics must give the same bits on a
+   second launch. The kNN + scale kernel's graph must equal the plain
+   version's exactly (the same distance bits), also past the 4096 points
+   it once refused (4352 and 8192), and an encode of 8 x 8192 points
+   through it must give the codes of the plain front end. FPS
    runs the front end's two batches as one stacked launch (timed beside the
    two launches it replaces) and is also checked from a random start index.
    Every kernel is also checked, untimed, at small ragged shapes (K < 16,
    partial tiles, repeated sources, exact ties; kNN at each query tile, FPS
    in each form, from a start index, stacked, and past its registers at
-   12288 points).
+   12288 points; the kNN + scale and scale kernels past one column chunk
+   and past 4096 points).
 4. Runs the fused-encoder pipeline (ShapePriorConfig(pallas_attention=True):
    FPS -> kNN+scale -> fused encoder -> match -> Kabsch -> ICP) at full
    width with the trained checkpoint weights/production_r5_selected.ckpt
@@ -110,6 +116,7 @@ TRAIN_CPU_BATCH = 8  # batch of the card-against-CPU step
 # kernel launches of one training step: FPS at layers 2, 4, 5, a kNN graph
 # per layer, each fused layer forward and backward
 TRAIN_STEP_LAUNCHES = {"fps": 3, "knn": 7, "layer0": 1, "edge_mean": 1,
+                       "edge_mean_products": 2,
                        "edge_attention": 5, "edge_attention_products": 10,
                        "layer0_bwd": 1, "edge_mean_bwd": 1,
                        "edge_attention_bwd": 5}
@@ -534,35 +541,60 @@ def check_close(name, got, want):
     return float(err.max())
 
 
-def phase_knn_topk(torch, report, pc):
+def lattice_cloud(torch, rng, dims):
+    """A permuted, centred lattice of prod(dims) points on the card: its
+    squared distances are exact in f32 and full of ties."""
+    g = np.stack(np.meshgrid(*[np.arange(d) for d in dims], indexing="ij"),
+                 -1).reshape(-1, 3)
+    g = rng.permutation(g) - (np.asarray(dims) - 1) / 2
+    return torch.as_tensor(g.astype(np.float32), device="cuda")
+
+
+def check_knn_topk(torch, name, pc, k, k_top):
+    """Row 4 against its plain version on the card: the graphs equal (the
+    kernel computes the plain version's distance bits and orders by
+    (distance, index), as the plain version's stable sort does), a point
+    its own neighbour 0 where no other point coincides with it, the scale
+    within 1e-5 rel. Returns (scale of the kernel, of the plain version)."""
+    from livingscenes_tpu_torch.ops import cuda_knn
+
+    Bn, n, _ = pc.shape
+    ik, sk = cuda_knn.knn_with_topk_scale_cuda(pc, k, k_top)
+    ip, sp = cuda_knn.knn_with_topk_scale_plain(pc, k, k_top)
+    torch.cuda.synchronize()
+    scale_err = float(((sk - sp).abs() / sp).max())
+    if not scale_err <= 1e-5:
+        raise AssertionError(f"{name}: scale differs by {scale_err} rel")
+    if not torch.equal(ik.long(), ip):
+        rows = int((ik.long() != ip).any(-1).sum())
+        raise AssertionError(f"{name}: the graph differs in {rows} rows")
+    if not bool((ik[..., 0] == torch.arange(n, device="cuda")).all()):
+        raise AssertionError(f"{name}: a point is not its own neighbour 0")
+    return sk, sp
+
+
+def phase_knn_topk(torch, report, pc, state):
     """Row 4 at the main path's shape: pc is the centred (B, 1024, 3)
     input of one encode. Cloud 1 is replaced by a permuted 16 x 8 x 8
-    lattice, centred, whose squared distances are exact in f32 and full
-    of ties: there the graph must equal the plain version's exactly."""
+    lattice, centred, whose squared distances are exact in f32 and full of
+    ties; every cloud's graph must equal the plain version's exactly
+    (check_knn_topk). Timed by CUDA graph replays. Then past the 4096
+    points the kernel once refused: 4 clouds of 4352 points (ragged
+    against the 512-column chunk) and of 8192, each with a lattice cloud,
+    checked the same way; and one encode of 8 clouds of 8192 points with
+    pallas_attention=True, whose codes must agree with those of the same
+    encode through the plain front end on the card (held to 1e-4 of each
+    code's largest magnitude, the scale to 1e-5 rel)."""
+    from livingscenes_tpu_torch.models import shape_prior as sp
     from livingscenes_tpu_torch.ops import cuda_knn
 
     k, k_top = 16, 5
     Bn, n, _ = pc.shape
     rng = np.random.default_rng(4)
-    lattice = np.stack(np.meshgrid(np.arange(16), np.arange(8), np.arange(8),
-                                   indexing="ij"), -1).reshape(-1, 3)
     pc = pc.clone()
-    pc[1] = torch.as_tensor(
-        (rng.permutation(lattice) - (7.5, 3.5, 3.5)).astype(np.float32),
-        device="cuda")
-    ik, sk = cuda_knn.knn_with_topk_scale_cuda(pc, k, k_top)
-    ip, sp = cuda_knn.knn_with_topk_scale_plain(pc, k, k_top)
-    torch.cuda.synchronize()
-    ik = ik.long()
-    scale_err = float(((sk - sp).abs() / sp).max())
-    if not scale_err <= 1e-5:
-        raise AssertionError(f"knn_topk: scale differs by {scale_err} rel")
-    if not torch.equal(ik[1], ip[1]):
-        raise AssertionError("knn_topk: lattice cloud's graph differs")
-    if not bool((ik[..., 0] == torch.arange(n, device="cuda")).all()):
-        raise AssertionError("knn_topk: a point is not its own neighbour 0")
-    swapped = check_graph(torch, "knn_topk", pc, pc, ik, ip)
-    ms = cuda_ms(torch, lambda: cuda_knn.knn_with_topk_scale_cuda(pc, k, k_top), 20)
+    pc[1] = lattice_cloud(torch, rng, (16, 8, 8))
+    sk, sp_ = check_knn_topk(torch, "knn_topk", pc, k, k_top)
+    ms = graph_ms(torch, lambda: cuda_knn.knn_with_topk_scale_cuda(pc, k, k_top))
     plain = cuda_ms(
         torch, lambda: cuda_knn.knn_with_topk_scale_plain(pc, k, k_top), 5)
 
@@ -575,18 +607,68 @@ def phase_knn_topk(torch, report, pc):
     flops = 8.0 * Bn * n * n + 2.0 * Bn * n * n
     nbytes = 12.0 * Bn * n + 4.0 * Bn * n * k + 4.0 * Bn
     bms, by = bound_ms(flops, nbytes)
-    log(f"knn_topk {Bn}x{n}x3: ok ({int(swapped.sum())} swaps, scale rel err "
-        f"{scale_err:.2g}); kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-        f"cdist+topk x2 {lib:.3f} ms, bound {bms:.4f} ms ({by})")
+    log(f"knn_topk {Bn}x{n}x3: ok (graphs equal, scale rel err "
+        f"{float(((sk - sp_).abs() / sp_).max()):.2g}); kernel {ms:.4f} ms "
+        f"(graph replays), plain {plain:.3f} ms, cdist+topk x2 {lib:.3f} ms, "
+        f"bound {bms:.4f} ms ({by})")
     calls = 2  # ref and rescan encodes
     report["knn_topk"] = {
         "shape": [Bn, n, 3], "per_launch": {
             "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bms},
         "ms": calls * ms, "plain_ms": calls * plain,
         "library_ms": calls * lib, "bound_ms": calls * bms, "bound_by": by,
-        "max_abs_err": float((sk - sp).abs().max()),
-        "swapped": int(swapped.sum()),
+        "max_abs_err": float((sk - sp_).abs().max()), "past_old_cap": {},
     }
+
+    # past the old cap of 4096 points
+    for big, dims in ((4352, (17, 16, 16)), (8192, (32, 16, 16))):
+        clouds = torch.as_tensor(
+            rng.uniform(-0.5, 0.5, (4, big, 3)).astype(np.float32), device="cuda")
+        clouds[2] = lattice_cloud(torch, rng, dims)
+        check_knn_topk(torch, f"knn_topk N={big}", clouds, k, k_top)
+        big_ms = graph_ms(
+            torch, lambda: cuda_knn.knn_with_topk_scale_cuda(clouds, k, k_top),
+            per_graph=5, replays=4)
+        report["knn_topk"]["past_old_cap"][str(big)] = {
+            "shape": [4, big, 3], "ms": big_ms}
+        log(f"knn_topk 4x{big}x3: ok (graphs equal, a lattice cloud among "
+            f"them); kernel {big_ms:.4f} ms (graph replays)")
+        del clouds
+
+    # an encode at 8192 points through the fused front end, against the
+    # same encode through the plain front end on the card
+    big = 8192
+    ref_np, _ = make_scenes(np.random.default_rng(7), n_scenes=1, n_pts=big)
+    x = torch.as_tensor(ref_np[0], device="cuda")
+    model = sp.ShapePrior(sp.ShapePriorConfig(pallas_attention=True), device="cuda")
+    model.load_state_dict(state)
+    with torch.inference_mode():
+        codes, launches = counted(lambda: model.encode(x))
+        real = sp.knn_with_topk_scale
+        sp.knn_with_topk_scale = cuda_knn.knn_with_topk_scale_plain
+        try:
+            plain_codes = model.encode(x)
+        finally:
+            sp.knn_with_topk_scale = real
+        torch.cuda.synchronize()
+    if launches["knn_topk"] != 1:
+        raise AssertionError(f"encode at N={big}: launches {launches}")
+    diffs = {}
+    for key, val in codes.items():
+        ref = plain_codes[key]
+        if not bool(torch.isfinite(val).all()):
+            raise AssertionError(f"encode at N={big}: non-finite {key}")
+        diffs[key] = float((val - ref).abs().max() / ref.abs().max())
+    s_rel = float(((codes["s"] - plain_codes["s"]).abs() / plain_codes["s"]).max())
+    log(f"encode {x.shape[0]}x{big}, pallas_attention=True: the kernel's front "
+        f"end against the plain one on the card: max |diff| over max |value| "
+        + ", ".join(f"{k_} {v:.3g}" for k_, v in diffs.items())
+        + f"; s rel {s_rel:.3g}")
+    if max(diffs.values()) > 1e-4 or s_rel > 1e-5:
+        raise AssertionError(f"encode at N={big}: codes differ {diffs}, s {s_rel}")
+    report["knn_topk"]["encode_8192"] = {"max_rel_diff": diffs, "s_rel": s_rel}
+    del model, codes, plain_codes
+    torch.cuda.empty_cache()
 
 
 def record_layer_calls(torch, model, pc):
@@ -687,8 +769,8 @@ def phase_fused_layers(torch, report, calls):
     rows, y[e] = (W_l src)[idx[e]] + ((W_r - W_l) dst)[n] and
     D y[e] = (D W_l src)[idx[e]] + (D (W_r - W_l) dst)[n], so both are needed
     once per source and per destination point and branch, not once per edge
-    (the mean-edge kernel, like the TPU kernels, does them per edge; the
-    attention kernel once per point), and where C < O more cheaply as one
+    (the TPU kernels do them per edge; the mean-edge and attention kernels
+    once per point, edge_stages), and where C < O more cheaply as one
     product by [W | D W] (edge_work); at layer 0 the pre-activation row is
     W (O, 3) times three vectors of the edge, so its direction is (D W)
     times the same three. Only the sum of the two halves, the activation,
@@ -722,12 +804,15 @@ def phase_fused_layers(torch, report, calls):
             shape = f"{kind} B={Bn} Ns={ns} Nd={nd} C={C} O={O} K={K}"
             err = check_close(shape, got, want)
             del got
-            ms = cuda_ms(torch, lambda: kernel(*args), 10)
+            # row 6 by graph replays (its launches are short enough for the
+            # wrapper's host time to show), rows 5 and 7 as before
+            ms = (graph_ms(torch, lambda: kernel(*args), 10, 5)
+                  if kind == "edge_mean" else cuda_ms(torch, lambda: kernel(*args), 10))
             plain = cuda_ms(torch, lambda: plain_fn(*args), 3, 1)
             bms, by = bound_ms(flops, nbytes)
             bms_wd = bound_ms(edge_work(kind, args, w_then_d=True)[0], nbytes)[0]
-            stages = (attention_stages(torch, args, ms)
-                      if kind == "edge_attention" else {})
+            stages = (edge_stages(torch, kind, args, ms)
+                      if kind != "layer0" else {})
             r = report[kind]
             r["shapes"].append({
                 "shape": {"B": Bn, "Ns": ns, "Nd": nd, "C": C, "O": O, "K": K},
@@ -748,7 +833,7 @@ def phase_fused_layers(torch, report, calls):
                     f"({stages['products_gflop']:.2f} GFLOP, "
                     f"{stages['products_bytes'] / 1e6:.0f} MB), edge pass and "
                     f"glue {stages['edges_ms']:.3f} ms "
-                    f"({stages['edges_gathered_bytes'] / 1e9:.2f} GB gathered, "
+                    f"({stages['edges_gathered_bytes'] / 1e9:.3f} GB gathered, "
                     f"{stages['edges_distinct_bytes'] / 1e6:.0f} MB distinct)"
                     if stages else ""))
             del want
@@ -757,31 +842,44 @@ def phase_fused_layers(torch, report, calls):
         report[kind]["bound_by"] = largest["bound_by"]
 
 
-def attention_stages(torch, args, total_ms):
-    """Row 7's two stages at one layer's inputs: the per-point products
-    (attention_point_products_cuda, timed alone; their flops, and their
-    bytes: each operand read once, each product written once), and the rest
-    of the wrapper's time (the edge pass and the wrapper's glue), with the
-    bytes the edge pass gathers (the Y and Kd rows of both branches of each
-    edge's source, 48 O bytes) and the distinct bytes of the rows it reads."""
+def edge_stages(torch, kind, args, total_ms):
+    """The two stages of row 6 or 7 at one layer's inputs: the per-point
+    products (mean_point_products_cuda or attention_point_products_cuda,
+    timed alone the way the layer is timed; their flops, and their bytes:
+    each operand read once, each product written once), and the rest of the
+    wrapper's time (the edge pass and the wrapper's glue), with the bytes
+    the edge pass gathers (the Y and Kd rows of each branch of each edge's
+    source: 24 O bytes a branch) and the distinct bytes of the rows it
+    reads."""
     from livingscenes_tpu_torch.nn import cuda_attention
 
-    src, dst, idx, q_n, W_K, D_K, W_V, D_V = args[:8]
+    src, dst, idx = args[:3]
     Bn, ns, C, _ = src.shape
     nd, K = idx.shape[1], idx.shape[2]
-    O = W_K.shape[0]
-    W_l = torch.cat([W_K[:, :C], W_V[:, :C]], dim=0)
-    W_delta = torch.cat([W_K[:, C:], W_V[:, C:]], dim=0) - W_l
-    ms = cuda_ms(torch, lambda: cuda_attention.attention_point_products_cuda(
-        src, dst, W_l, W_delta, D_K, D_V), 10)
+    if kind == "edge_mean":
+        W, D = args[3:5]
+        O, branches = W.shape[0], 1
+        W_l = W[:, :C].contiguous()
+        W_delta = W[:, C:] - W_l
+        ms = graph_ms(torch, lambda: cuda_attention.mean_point_products_cuda(
+            src, dst, W_l, W_delta, D), 10, 5)
+    else:
+        W_K, D_K, W_V, D_V = args[4:8]
+        O, branches = W_K.shape[0], 2
+        W_l = torch.cat([W_K[:, :C], W_V[:, :C]], dim=0)
+        W_delta = torch.cat([W_K[:, C:], W_V[:, C:]], dim=0) - W_l
+        ms = cuda_ms(torch, lambda: cuda_attention.attention_point_products_cuda(
+            src, dst, W_l, W_delta, D_K, D_V), 10)
     rows = 3.0 * Bn * (ns + nd)
-    # D W for both weights and branches, then every row times [W | D W]
-    flops = 2.0 * (4 * C * O * O + rows * C * 4 * O)
-    floats = rows * C + 4 * C * O + 2 * O * O + rows * 4 * O
+    width = 2 * branches * O  # [Y | Kd] of each branch
+    # D W for both halves of W and each branch, then every row times [W | D W]
+    flops = 2.0 * (2 * branches * C * O * O + rows * C * width)
+    floats = (rows * C + 2 * branches * C * O + branches * O * O
+              + rows * width)
     return {"products_ms": ms, "products_gflop": flops / 1e9,
             "products_bytes": 4.0 * floats, "edges_ms": total_ms - ms,
-            "edges_gathered_bytes": 48.0 * O * Bn * nd * K,
-            "edges_distinct_bytes": 4.0 * rows * 4 * O}
+            "edges_gathered_bytes": 24.0 * branches * O * Bn * nd * K,
+            "edges_distinct_bytes": 4.0 * rows * width}
 
 
 BWD = {"layer0": "layer0_bwd", "edge_mean": "edge_mean_bwd",
@@ -1001,8 +1099,9 @@ def phase_small_shapes(torch, report):
     kernel's registers); K < 16, point counts and widths that fill no whole tile,
     ICP clouds with fewer targets than a block's warps or more than one
     target tile (exact distances, many ties),
-    N_dst != N_src, one head and many, the largest cloud the kNN + scale
-    and scale kernels take, Sinkhorn clouds with N != M that fill no whole
+    N_dst != N_src, one head and many, the kNN + scale and scale kernels
+    past the 4096 points they once refused (4352, 8192; 5000), Sinkhorn
+    clouds with N != M that fill no whole
     warp, backward kernels on graphs with repeated sources and at the widest
     O they take (512). Random inputs from a seed; checked, not timed."""
     from livingscenes_tpu_torch.nn import cuda_attention, cuda_layer0
@@ -1081,14 +1180,11 @@ def phase_small_shapes(torch, report):
                                             cuda_fps.fps_cuda(res, 100)])):
             raise AssertionError("fps small: the stacked launch differs from two")
         done.append("fps small stacked front end")
-        for n, k in ((20, 5), (100, 16), (333, 7), (4096, 16)):
-            pc = f32(2, n, 3)
-            ik, sk = cuda_knn.knn_with_topk_scale_cuda(pc, k)
-            ip, sp = cuda_knn.knn_with_topk_scale_plain(pc, k)
+        # row 4 past one column chunk and past the old cap of 4096 points
+        for n, k in ((20, 5), (100, 16), (333, 7), (4096, 16), (4352, 16),
+                     (8192, 9)):
             name = f"knn_topk small N={n} k={k}"
-            if not float(((sk - sp).abs() / sp).max()) <= 1e-5:
-                raise AssertionError(f"{name}: scale differs")
-            check_graph(torch, name, pc, pc, ik.long(), ip)
+            check_knn_topk(torch, name, f32(2, n, 3), k, 5)
             done.append(name)
         for n, K, O in ((40, 16, 32), (33, 8, 48), (18, 16, 132)):
             args = (f32(2, n, 3), graph(n, n, K), f32(O, 3, scale=0.5),
@@ -1098,7 +1194,8 @@ def phase_small_shapes(torch, report):
                         cuda_layer0.fused_layer0_edge_mean_plain(*args))
             done.append(name)
         for ns, nd, C, O, K in ((50, 50, 32, 32, 16), (40, 21, 16, 48, 8),
-                                (30, 5, 36, 140, 7)):
+                                (30, 5, 36, 140, 7), (60, 50, 8, 24, 16),
+                                (30, 70, 6, 4, 3), (20, 3, 128, 256, 11)):
             args = (f32(2, ns, C, 3), f32(2, nd, C, 3), graph(ns, nd, K),
                     f32(O, 2 * C, scale=0.2), f32(O, O, scale=0.2))
             name = f"edge_mean small Ns={ns} Nd={nd} C={C} O={O} K={K}"
@@ -1138,7 +1235,8 @@ def phase_small_shapes(torch, report):
                     g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()),
                     msg=lambda msg, name=name: f"{name}: {msg}")
             done.append(name)
-        for n, k in ((7, 5), (37, 5), (333, 8), (4096, 5)):
+        # row 8 past one column chunk and past the old cap of 4096 points
+        for n, k in ((7, 5), (37, 5), (333, 8), (4096, 5), (5000, 5)):
             pc = f32(2, n, 3)
             name = f"scale small N={n} k={k}"
             torch.testing.assert_close(
@@ -1222,6 +1320,8 @@ def counters():
             "knn_topk": (cuda_knn, "topk_launches"),
             "layer0": (cuda_layer0, "launches"),
             "edge_mean": (cuda_attention, "mean_launches"),
+            # row 6's per-point products: two launches before each edge pass
+            "edge_mean_products": (cuda_attention, "mean_products_launches"),
             "edge_attention": (cuda_attention, "attention_launches"),
             # row 7's per-point products: two launches before each edge pass
             "edge_attention_products": (cuda_attention, "products_launches"),
@@ -1260,6 +1360,7 @@ class forbid_plain:
                 (cuda_knn, "knn_with_topk_scale_plain"),
                 (cuda_layer0, "fused_layer0_edge_mean_plain"),
                 (cuda_attention, "fused_edge_mean_plain"),
+                (cuda_attention, "mean_point_products_plain"),
                 (cuda_attention, "fused_edge_attention_plain"),
                 (cuda_layer0, "fused_layer0_edge_mean_bwd_plain"),
                 (cuda_attention, "fused_edge_mean_bwd_plain"),
@@ -1457,6 +1558,7 @@ def phase_pipeline(torch, report, state, scenes, profile: bool):
     then the default-config path with fewer timed calls, then the two held
     against each other. Returns the fused path's launch counts."""
     per_encode = {"knn_topk": 1, "layer0": 1, "edge_mean": 1,
+                  "edge_mean_products": 2,
                   "edge_attention": len(KNN_LAYERS) - 2,
                   "edge_attention_products": 2 * (len(KNN_LAYERS) - 2)}
     # FPS: the front end's one stacked launch, then three an encode
@@ -1739,7 +1841,7 @@ def phase_scale(torch, report, state, pc):
         torch.cuda.synchronize()
     launches = {k: v for k, v in launches.items() if v}
     want_launches = {"scale": 1, "knn": len(KNN_LAYERS), "fps": len(FPS_ENCODER),
-                     "layer0": 1, "edge_mean": 1,
+                     "layer0": 1, "edge_mean": 1, "edge_mean_products": 2,
                      "edge_attention": len(KNN_LAYERS) - 2,
                      "edge_attention_products": 2 * (len(KNN_LAYERS) - 2)}
     log(f"encode {Bn}x{n}, pallas_attention=True: launches {launches}")
@@ -2009,6 +2111,7 @@ def phase_optim(torch, report, state, profile: bool):
     n_enc = len(KNN_LAYERS)
     want = {"fps": 2 * len(FPS_ENCODER), "knn": 2 * (n_enc - 1),
             "icp_stats": ICP_ITERS, "knn_topk": 2, "layer0": 2, "edge_mean": 2,
+            "edge_mean_products": 4,
             "edge_attention": 2 * (n_enc - 2),
             "edge_attention_products": 4 * (n_enc - 2),
             "sinkhorn": 1 + 2 * REFINE_STEPS, "sinkhorn_bwd": 2 * REFINE_STEPS}
@@ -2532,13 +2635,16 @@ def summary_line(report) -> str:
         f"(plain {report[name]['plain_ms']:.2f}, bound {report[name]['bound_ms']:.3f})"
         for name in BWD.values())
     attn = "/".join(f"{row['ms']:.3f}" for row in report["edge_attention"]["shapes"])
+    mean = report["edge_mean"]["shapes"][0]
     knn = "/".join(f"{row['ms']:.3f}" for row in report["knn"]["shapes"][1:])
     fps = "/".join(f"{row['ms']:.3f}" for row in report["fps"]["shapes"])
     heads = (f"row 2 {report['knn']['fused_path']['ms']:.3f} ms in 12 launches "
              f"(layers 1-6 {knn}), row 1 {report['fps']['ms']:.3f} ms in 7 "
              f"({fps}), "
              f"row 7 {report['edge_attention']['ms']:.3f} ms in 10 launches "
-             f"(layers 2-6 {attn}), row 3 "
+             f"(layers 2-6 {attn}), row 6 {report['edge_mean']['ms']:.4f} ms "
+             f"in 2 (products {mean['products_ms']:.4f} a launch), row 4 "
+             f"{report['knn_topk']['ms']:.4f} ms in 2, row 3 "
              f"{report['icp_stats']['per_launch']['ms']:.5f} ms a launch; "
              f"fused call peak {report['pipeline']['peak_mem_gb']:.3f} GB; ")
     return (f"summary: {heads}scene-pairs/s fused {report['pipeline']['scene_pairs_per_s']:.4f}, "
@@ -2599,7 +2705,7 @@ def main() -> int:
     model.load_state_dict(state)
     pc = fps_auto(torch.as_tensor(ref_np, device="cuda").reshape(B, N_FULL, 3),
                   N_PCL)[0]
-    phase_knn_topk(torch, report, pc - pc.mean(dim=1, keepdim=True))
+    phase_knn_topk(torch, report, pc - pc.mean(dim=1, keepdim=True), state)
     calls = record_layer_calls(torch, model, pc)
     phase_fused_layers(torch, report, calls)
     phase_fused_layers_bwd(torch, report, calls)
@@ -2657,13 +2763,15 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
-    # row 7 is three launches a call: the edge pass, which `launches`
-    # counts, after the two of its per-point products, counted apart
-    row7 = next(k for k in kernels if k["name"] == "edge_attention")
-    row7["products_launches"] = launches["edge_attention_products"]
+    # rows 6 and 7 are three launches a layer: the edge pass, which
+    # `launches` counts, after the two of its per-point products, counted
+    # apart
     idle = [k["name"] for k in kernels if not k["launches"]]
-    if not row7["products_launches"]:
-        idle.append("edge_attention_products")
+    for name in ("edge_mean", "edge_attention"):
+        row = next(k for k in kernels if k["name"] == name)
+        row["products_launches"] = launches[f"{name}_products"]
+        if not row["products_launches"]:
+            idle.append(f"{name}_products")
     if idle:
         raise AssertionError(f"kernels that their path never launched: {idle}")
     report["kernels"] = kernels

@@ -78,42 +78,6 @@ struct EdgeSmem {
   }
 };
 
-__device__ __forceinline__ void load12(const float* __restrict__ row,
-                                       float (&v)[3][4], int ld) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float4 t = *reinterpret_cast<const float4*>(row + (size_t)i * ld);
-    v[i][0] = t.x;
-    v[i][1] = t.y;
-    v[i][2] = t.z;
-    v[i][3] = t.w;
-  }
-}
-
-// The activated features of 4 channels of one edge: the source's Y and Kd
-// rows (3 rows of stride ld at ps and at ps + 2 O) plus the destination's
-// yd and kdd.
-__device__ __forceinline__ void edge_features(const float* __restrict__ ps,
-                                              int ld, const float (&yd)[3][4],
-                                              const float (&kdd)[3][4],
-                                              float slope, float (&f)[3][4]) {
-  float ya[3][4], ka[3][4];
-  load12(ps, ya, ld);
-  load12(ps + ld / 2, ka, ld);
-#pragma unroll
-  for (int v = 0; v < 4; ++v) {
-    const float y[3] = {ya[0][v] + yd[0][v], ya[1][v] + yd[1][v],
-                        ya[2][v] + yd[2][v]};
-    const float kd[3] = {ka[0][v] + kdd[0][v], ka[1][v] + kdd[1][v],
-                         ka[2][v] + kdd[2][v]};
-    float o[3];
-    vec_act(y, kd, slope, o);
-    f[0][v] = o[0];
-    f[1][v] = o[1];
-    f[2][v] = o[2];
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
     attention_edges_kernel(const float* __restrict__ psrc,
                            const float* __restrict__ pdst,
@@ -209,7 +173,6 @@ extern "C" int lstpu_attention_products(const void* src, const void* dst,
                                         const void* dk_t, const void* dv_t,
                                         void* psrc, void* pdst, int B, int Ns,
                                         int Nd, int C, int O, void* stream) {
-  using lstpu_points::Gemm;
   using lstpu_points::GemmGroup;
   if (B <= 0 || Ns <= 0 || Nd <= 0 || C <= 0 || O <= 0 || C % 4 || O % 4)
     return (int)cudaErrorInvalidValue;
@@ -219,26 +182,22 @@ extern "C" int lstpu_attention_products(const void* src, const void* dst,
   auto dv = static_cast<const float*>(dv_t);
   auto st = static_cast<cudaStream_t>(stream);
   const int ld = 4 * O;
-  // a row-major operand with rows of `lda` floats
-  auto plain = [](const float* a, int lda, int m, const float* bt, int ldb,
-                  float* c, int ldc, int n, int k) {
-    return Gemm{a, (size_t)3 * lda, lda, 1, bt, ldb, c, ldc, m, n, k, 0, 0};
-  };
+  using lstpu_points::point_rows;
+  using lstpu_points::row_major;
   // (D W)^T = W^T D^T for each branch of both weights
   GemmGroup weights{};
-  weights.g[0] = plain(ws, ld, C, dk, O, ws + 2 * O, ld, O, O);
-  weights.g[1] = plain(ws + O, ld, C, dv, O, ws + 3 * O, ld, O, O);
-  weights.g[2] = plain(wd, ld, C, dk, O, wd + 2 * O, ld, O, O);
-  weights.g[3] = plain(wd + O, ld, C, dv, O, wd + 3 * O, ld, O, O);
+  weights.g[0] = row_major(ws, ld, C, dk, O, ws + 2 * O, ld, O, O);
+  weights.g[1] = row_major(ws + O, ld, C, dv, O, ws + 3 * O, ld, O, O);
+  weights.g[2] = row_major(wd, ld, C, dk, O, wd + 2 * O, ld, O, O);
+  weights.g[3] = row_major(wd + O, ld, C, dv, O, wd + 3 * O, ld, O, O);
   weights.count = 4;
   int err = lstpu_points::run_group(weights, st);
   if (err) return err;
-  // rows (b, n, i): feature[b][n][c][i] is A(r, c) at n 3 C + 3 c + i
   GemmGroup points{};
-  points.g[0] = Gemm{static_cast<const float*>(src), (size_t)3 * C, 1, 3, ws,
-                     ld, static_cast<float*>(psrc), ld, B * Ns * 3, ld, C, 0, 0};
-  points.g[1] = Gemm{static_cast<const float*>(dst), (size_t)3 * C, 1, 3, wd,
-                     ld, static_cast<float*>(pdst), ld, B * Nd * 3, ld, C, 0, 0};
+  points.g[0] = point_rows(static_cast<const float*>(src), B * Ns, C, ws, ld,
+                           static_cast<float*>(psrc));
+  points.g[1] = point_rows(static_cast<const float*>(dst), B * Nd, C, wd, ld,
+                           static_cast<float*>(pdst));
   points.count = 2;
   return lstpu_points::run_group(points, st);
 }

@@ -1,7 +1,8 @@
-// Device code shared by the fused edge layers: layer0.cu, mean_edge.cu and
-// their backward kernels and attention_bwd.cu (through edge_bwd.cuh), and
-// the per-edge functions of attention.cu (vec_act, quad_key_score,
-// attention_weights), whose products are per point instead.
+// Device code shared by the fused edge layers: layer0.cu, the backward
+// kernels (mean_edge_bwd.cu and attention_bwd.cu through edge_bwd.cuh), and
+// the per-edge functions of attention.cu and mean_edge.cu (vec_act,
+// edge_features, quad_key_score, attention_weights), whose products are per
+// point instead.
 //
 // They run, per destination point and its K <= 16 neighbours (edges),
 //
@@ -10,7 +11,8 @@
 //   f = y - (y.k^) k^ + k^ leaky(y.k^),  k^ = kd / max(|kd|, 1e-12)
 //   a weighted sum of f over the K edges
 //
-// (attention.cu adds y and kd from per-point rows instead of multiplying)
+// (attention.cu and mean_edge.cu add y and kd from per-point rows instead
+// of multiplying)
 // and never write an (edges, O, 3) tensor to device memory. A block of 256
 // threads owns EB edges (whole destination points). The pre-activation rows
 // of one branch stay in shared memory as a row-major (3 EB) x O matrix; the
@@ -302,6 +304,43 @@ __device__ __forceinline__ void vec_act(const float (&y)[3],
   out[2] = y[2] - qpara * k2 + k2 * acted;
 }
 
+// 4 channels of 3 rows of stride ld: v[i][0..3] = row[i ld .. i ld + 3].
+__device__ __forceinline__ void load12(const float* __restrict__ row,
+                                       float (&v)[3][4], int ld) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float4 t = *reinterpret_cast<const float4*>(row + (size_t)i * ld);
+    v[i][0] = t.x;
+    v[i][1] = t.y;
+    v[i][2] = t.z;
+    v[i][3] = t.w;
+  }
+}
+
+// The activated features of 4 channels of one edge from per-point rows
+// (attention.cu, mean_edge.cu): the source's Y and Kd rows (3 rows of
+// stride ld at ps and at ps + ld / 2) plus the destination's yd and kdd.
+__device__ __forceinline__ void edge_features(const float* __restrict__ ps,
+                                              int ld, const float (&yd)[3][4],
+                                              const float (&kdd)[3][4],
+                                              float slope, float (&f)[3][4]) {
+  float ya[3][4], ka[3][4];
+  load12(ps, ya, ld);
+  load12(ps + ld / 2, ka, ld);
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    const float y[3] = {ya[0][v] + yd[0][v], ya[1][v] + yd[1][v],
+                        ya[2][v] + yd[2][v]};
+    const float kd[3] = {ka[0][v] + kdd[0][v], ka[1][v] + kdd[1][v],
+                         ka[2][v] + kdd[2][v]};
+    float o[3];
+    vec_act(y, kd, slope, o);
+    f[0][v] = o[0];
+    f[1][v] = o[1];
+    f[2][v] = o[2];
+  }
+}
+
 // Turn the direction products in acc into the activated features, in place.
 // The thread's columns are o..o+3 < O of its kEPT edges.
 template <int TX>
@@ -465,7 +504,8 @@ __device__ __forceinline__ void attention_weights(const float* sq,
   __syncthreads();
 }
 
-// Launch configuration shared by the three files: TX by the output width.
+// Launch configuration of the kernels that tile their outputs (layer0.cu
+// and the backward kernels): TX by the output width.
 inline int pick_tx(int O) { return O <= 32 ? 8 : (O <= 64 ? 16 : 32); }
 
 }  // namespace lstpu_edge

@@ -29,13 +29,12 @@
 // - Selection after each tile's products: the QT x PT distances go to
 //   shared memory, and two lanes a query each scan every other column in
 //   ascending order, keeping a sorted top-16 of (distance, index) in
-//   registers (knn_select.cuh). A lane's first 16 columns become its list
-//   by a sorting network. A later column passes only if it comes before
-//   the query's present 16th, the earlier of the two lanes' 16ths (exact:
-//   the other lane already holds 16 entries before it); the survivors are
-//   compacted into a bit mask, so a warp runs the insertion chain once per
-//   survivor of its busiest lane, not once per column where any lane has
-//   one. The (distance, index) order makes the two lists merge exactly.
+//   registers, filtered as knn_select.cuh sets out (shared with
+//   knn_topk.cu): a lane's first 16 columns become its list by a sorting
+//   network; a later column passes only if it comes before the query's
+//   present 16th, the earlier of the two lanes' 16ths; the survivors are
+//   compacted into a bit mask and inserted. The (distance, index) order
+//   makes the two lists merge exactly.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,60 +90,25 @@ __device__ __forceinline__ void stage(Tiles<QT, PT, SPLIT>& s, int buf,
   }
 }
 
-// Sort a list of 16 (distance, index) pairs by a bitonic network: 80
-// compare-exchanges, ten deep, in place of 16 insertions of 16 steps each.
-__device__ __forceinline__ void sort_list(float (&td)[kK], int (&ti)[kK]) {
-#pragma unroll
-  for (int size = 2; size <= kK; size *= 2) {
-#pragma unroll
-    for (int stride = size / 2; stride > 0; stride /= 2) {
-#pragma unroll
-      for (int i = 0; i < kK; ++i) {
-        const int l = i ^ stride;
-        if (l > i) {
-          const bool up = (i & size) == 0;
-          if (up ? before(td[l], ti[l], td[i], ti[i])
-                 : before(td[i], ti[i], td[l], ti[l])) {
-            const float d = td[i];
-            td[i] = td[l];
-            td[l] = d;
-            const int x = ti[i];
-            ti[i] = ti[l];
-            ti[l] = x;
-          }
-        }
-      }
-    }
-  }
-}
-
 // One lane's share of a tile's selection: columns half, half + 2, ... of
 // its query's row (ascending source index), filtered against the query's
-// present 16th, the survivors inserted in ascending order. In the first
-// tile the lane's first 16 columns are its list at once, sorted, so the
-// filter has a threshold from the start.
+// present 16th, the survivors inserted in ascending order (knn_select.cuh).
+// In the first tile the lane's first 16 columns are its list at once,
+// sorted, so the filter has a threshold from the start.
 template <int PT>
 __device__ __forceinline__ void select_tile(const float* drow, int p0,
                                             int n_valid, int half,
                                             float (&td)[kK], int (&ti)[kK]) {
+  auto col = [&](int j) { return p0 + 2 * j + half; };
+  auto dist = [&](int j) { return drow[2 * j + half]; };
   int j0 = 0;
   if (p0 == 0 && n_valid >= 2 * kK) {
-#pragma unroll
-    for (int m = 0; m < kK; ++m) {
-      td[m] = drow[2 * m + half];
-      ti[m] = 2 * m + half;
-    }
-    sort_list(td, ti);
+    seed_list(td, ti, col, dist);
     j0 = kK;
   }
-  float cd = td[kK - 1];
-  int ci = ti[kK - 1];
-  const float od = __shfl_xor_sync(0xffffffffu, cd, 1);
-  const int oi = __shfl_xor_sync(0xffffffffu, ci, 1);
-  if (before(od, oi, cd, ci)) {
-    cd = od;
-    ci = oi;
-  }
+  float cd;
+  int ci;
+  query_threshold<2>(td, ti, cd, ci);
   unsigned long long pass = 0;
 #pragma unroll
   for (int j = 0; j < PT / 2; ++j) {
@@ -152,11 +116,7 @@ __device__ __forceinline__ void select_tile(const float* drow, int p0,
     if (j >= j0 && c < n_valid && before(drow[c], p0 + c, cd, ci))
       pass |= 1ull << j;
   }
-  while (pass != 0) {
-    const int c = 2 * (__ffsll((long long)pass) - 1) + half;
-    pass &= pass - 1;
-    insert(td, ti, drow[c], p0 + c);
-  }
+  insert_survivors(td, ti, pass, col, dist);
 }
 
 template <int QT, int PT, int SPLIT, int MIN_BLOCKS>

@@ -2,121 +2,157 @@
 // mean over the K neighbours.
 //
 // Replaces the TPU kernel
-// livingscenes_tpu/nn/pallas_attention.py::_mean_edge_kernel. The edge
-// VecLinear is split as W [nn - dst, dst] = W_l nn + (W_r - W_l) dst; the
-// caller computes the dst half once per point (ydst), this kernel the
-// neighbour half per edge, the activation and the mean. The TPU kernel's
-// one-hot matmul gather is an indexed load here.
+// livingscenes_tpu/nn/pallas_attention.py::_mean_edge_kernel. Per edge e of
+// destination point n, with W = [W_l | W_r] and W_delta = W_r - W_l:
 //
-// What bounds it on the H100: operations, 3 (2 C O + 2 O O) flops per edge
-// against 3 C floats gathered (from L2: the source features of an instance
-// are read K times but fetched from device memory once). The design is the
-// shared one of edge_common.cuh: the gathered rows and the pre-activation
-// rows stay in shared memory, the weights stream through a tile, and only
-// the (B, Nd, O, 3) result is written.
+//   y[e] = W_l nn + W_delta dst,  f[e] = act(y[e], D y[e])   (O, 3)
+//   out[n] = (sum_k f[e_k]) / K, summed in ascending k
+//
+// The TPU kernel runs the C x O edge convolution and the O x O direction
+// product once per edge. Both are linear in the gathered row:
+//   y[e]   = (W_l src)[idx[e]] + (W_delta dst)[n]
+//   D y[e] = (D W_l src)[idx[e]] + (D W_delta dst)[n]
+// so, as attention.cu does for its two branches, this file computes them
+// once per point and leaves the edges only the work that is not linear.
+// Two stages, three launches a layer:
+//
+// 1. lstpu_mean_products (point_products.cuh). A first launch forms the
+//    weight products D W_l and D W_delta (C x O x O each, a few blocks)
+//    beside W_l^T and W_delta^T, the second multiplies every point's (3, C)
+//    rows by them: P_src = src [W_l | D W_l] and P_dst = dst [W_delta |
+//    D W_delta], (B, N, 3, 2 O), columns [Y | Kd]. At layer 1 of the
+//    production encoder (B = 64, Ns = Nd = 1024, C = O = 32) 1.6 GFLOP and
+//    150 MB (the features read, the rows written), against 13 GFLOP for
+//    the same products per edge (K = 16). Bound: bytes.
+// 2. mean_edges_kernel: per edge, gather the Y and Kd rows of its source
+//    and add the destination's; then the activation (vec_act, slope 0.2),
+//    the sum over K in ascending k and the division by K, with the rules
+//    and epsilons of edge_common.cuh. No product is left per edge. Bound:
+//    the gathered bytes, 3 rows x 2 O floats = 24 O bytes an edge (0.8 GB
+//    at layer 1), against the 50 MB of distinct source rows: each serves
+//    K = 16 edges on average, so the reuse comes from the L2 cache (50 MB;
+//    the grid runs an instance's blocks one after the other, and one
+//    instance's P_src is 0.8 MB). Design: a block of 256 threads owns
+//    P = 256 / (O / 4) destination points with all their edges; thread
+//    (point, quad) owns 4 channels of one point, keeps the destination's
+//    rows and the sum in registers and walks the point's K edges, each
+//    load a 16-byte piece of a row that the point's other threads read
+//    beside it.
+//
+// Rounding: D (W a + W b) becomes (D W) a + (D W) b, so results move by
+// about an f32 ulp of the terms against the TPU kernel's association (as
+// attention.cu's did). The backward kernel (mean_edge_bwd.cu) still
+// recomputes the forward per edge through conv_rows and gemm of
+// edge_common.cuh; both are f32 roundings of the same function, and the
+// training checks hold the pair together.
 #include "edge_common.cuh"
+#include "point_products.cuh"
 
 namespace {
 
 using namespace lstpu_edge;
 
-template <int TX>
-struct Smem {
-  int idx, bs, nn, y, total;  // float offsets
-  __host__ __device__ Smem(int C, int O) {
-    using T = Tile<TX>;
-    const int nn_size = T::EB * 3 * row_stride(C);
-    idx = 0;
-    bs = idx + T::EB;
-    nn = bs + T::BS;  // the gathered rows, later the K-sum buffer
-    y = nn + (nn_size > T::RED ? nn_size : T::RED);
-    total = y + T::EB * 3 * row_stride(O);
-  }
-};
-
-template <int TX>
 __global__ void __launch_bounds__(kThreads)
-    mean_edge_kernel(const float* __restrict__ src,
-                     const float* __restrict__ ydst,
-                     const int32_t* __restrict__ idx,
-                     const float* __restrict__ wl_t,
-                     const float* __restrict__ d_t, float* __restrict__ out,
-                     int Ns, int Nd, int C, int O, int K, float slope) {
+    mean_edges_kernel(const float* __restrict__ psrc,
+                      const float* __restrict__ pdst,
+                      const int32_t* __restrict__ idx, float* __restrict__ out,
+                      int Ns, int Nd, int O, int K, float slope) {
   extern __shared__ __align__(16) float smem[];
-  using T = Tile<TX>;
-  const Smem<TX> lay(C, O);
-  int* idx_s = reinterpret_cast<int*>(smem + lay.idx);
-  float* Bs = smem + lay.bs;
-  float* nn_s = smem + lay.nn;
-  float* y_s = smem + lay.y;
-  const int ldn = row_stride(C), ldy = row_stride(O);
-  const Block blk = make_block<TX>(Nd, K);
-
-  load_idx<TX>(idx_s, idx, blk);
-  zero_pad(nn_s, T::EB * 3, ldn, C);
-  zero_pad(y_s, T::EB * 3, ldy, O);
-  __syncthreads();
-  gather_rows<TX>(nn_s, ldn, src + (size_t)blk.b * Ns * C * 3, C, idx_s);
+  int* idx_s = reinterpret_cast<int*>(smem);
+  const int Oq = O / 4, P = kThreads / Oq;
+  const int b = blockIdx.y, n0 = blockIdx.x * P;
+  const int e_act = min(P, Nd - n0) * K;
+  const int32_t* idx_b = idx + ((size_t)b * Nd + n0) * K;
+  for (int e = threadIdx.x; e < e_act; e += kThreads) idx_s[e] = idx_b[e];
   __syncthreads();
 
-  conv_rows<TX>(y_s, ldy, nn_s, ldn, C, wl_t, O, O,
-                ydst + (size_t)blk.b * Nd * 3 * O, O, blk, Bs);
-
-  float* out_b = out + (size_t)blk.b * Nd * O * 3;
-  const int to = threadIdx.x % TX;
-  float acc[kEPT][3][4];
-  for (int o0 = 0; o0 < O; o0 += T::OT) {
-    gemm<TX>(acc, y_s, ldy, O, d_t, O, o0, O, Bs);
-    if (o0 + 4 * to < O) activate<TX>(acc, y_s, ldy, o0 + 4 * to, slope);
-    weighted_sum_store<TX>(acc, nullptr, 0, 1, nn_s, out_b, O, o0, (float)K,
-                           blk);
+  const int pl = threadIdx.x / Oq, o = 4 * (threadIdx.x % Oq);
+  const int n = n0 + pl;
+  if (pl >= P || n >= Nd) return;
+  const int ld = 2 * O;  // row length of the per-point products
+  const float* psrc_b = psrc + (size_t)b * Ns * 3 * ld;
+  const float* pdst_n = pdst + ((size_t)b * Nd + n) * 3 * ld;
+  const int* idx_n = idx_s + pl * K;
+  float yd[3][4], kdd[3][4], f[3][4];
+  load12(pdst_n + o, yd, ld);
+  load12(pdst_n + O + o, kdd, ld);
+  float acc[3][4] = {};
+#pragma unroll 2
+  for (int k = 0; k < K; ++k) {
+    edge_features(psrc_b + (size_t)idx_n[k] * 3 * ld + o, ld, yd, kdd, slope,
+                  f);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][v] += f[i][v];
   }
-}
-
-template <int TX>
-int launch(const float* src, const float* ydst, const int32_t* idx,
-           const float* wl_t, const float* d_t, float* out, int B, int Ns,
-           int Nd, int C, int O, int K, float slope, cudaStream_t stream) {
-  const Smem<TX> lay(C, O);
-  const int bytes = lay.total * (int)sizeof(float);
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mean_edge_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int tn = Tile<TX>::EB / K;
-  const dim3 grid((Nd + tn - 1) / tn, B);
-  mean_edge_kernel<TX><<<grid, kThreads, bytes, stream>>>(
-      src, ydst, idx, wl_t, d_t, out, Ns, Nd, C, O, K, slope);
-  return (int)cudaGetLastError();
+  const float div = (float)K;
+  // out[n][o..o+3][0..2]: 12 floats in (channel, component) order
+  float4* dst =
+      reinterpret_cast<float4*>(out + (((size_t)b * Nd + n) * O + o) * 3);
+  dst[0] = make_float4(acc[0][0] / div, acc[1][0] / div, acc[2][0] / div,
+                       acc[0][1] / div);
+  dst[1] = make_float4(acc[1][1] / div, acc[2][1] / div, acc[0][2] / div,
+                       acc[1][2] / div);
+  dst[2] = make_float4(acc[2][2] / div, acc[0][3] / div, acc[1][3] / div,
+                       acc[2][3] / div);
 }
 
 }  // namespace
 
-// src (B, Ns, C, 3), ydst (B, Nd, 3, O) = (W_r - W_l) dst, idx (B, Nd, K)
-// int32 in [0, Ns), wl_t (C, O) = W_l^T, d_t (O, O) = D^T, out (B, Nd, O, 3);
-// f32, contiguous. C and O multiples of 4, 1 <= K <= 16.
-extern "C" int lstpu_edge_mean(const void* src, const void* ydst,
-                               const void* idx, const void* wl_t,
-                               const void* d_t, void* out, int B, int Ns,
-                               int Nd, int C, int O, int K, float slope,
+// The per-point products of the mean-edge layer. src (B, Ns, C, 3), dst
+// (B, Nd, C, 3); w_src, w_dst (C, 2 O) whose columns [0, O) hold W_l^T and
+// W_delta^T and whose columns [O, 2 O) this writes: (D W_l)^T, (D W_delta)^T;
+// d_t (O, O) = D^T. Writes psrc = src w_src (B, Ns, 3, 2 O) and pdst =
+// dst w_dst (B, Nd, 3, 2 O), columns [Y | Kd]. f32, contiguous, O a
+// multiple of 4. Two launches on `stream`.
+extern "C" int lstpu_mean_products(const void* src, const void* dst,
+                                   void* w_src, void* w_dst, const void* d_t,
+                                   void* psrc, void* pdst, int B, int Ns,
+                                   int Nd, int C, int O, void* stream) {
+  using lstpu_points::GemmGroup;
+  using lstpu_points::point_rows;
+  using lstpu_points::row_major;
+  if (B <= 0 || Ns <= 0 || Nd <= 0 || C <= 0 || O <= 0 || O % 4)
+    return (int)cudaErrorInvalidValue;
+  auto ws = static_cast<float*>(w_src);
+  auto wd = static_cast<float*>(w_dst);
+  auto dt = static_cast<const float*>(d_t);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int ld = 2 * O;
+  // (D W)^T = W^T D^T for both halves of W
+  GemmGroup weights{};
+  weights.g[0] = row_major(ws, ld, C, dt, O, ws + O, ld, O, O);
+  weights.g[1] = row_major(wd, ld, C, dt, O, wd + O, ld, O, O);
+  weights.count = 2;
+  int err = lstpu_points::run_group(weights, st);
+  if (err) return err;
+  GemmGroup points{};
+  points.g[0] = point_rows(static_cast<const float*>(src), B * Ns, C, ws, ld,
+                           static_cast<float*>(psrc));
+  points.g[1] = point_rows(static_cast<const float*>(dst), B * Nd, C, wd, ld,
+                           static_cast<float*>(pdst));
+  points.count = 2;
+  return lstpu_points::run_group(points, st);
+}
+
+// The edge pass. psrc (B, Ns, 3, 2 O), pdst (B, Nd, 3, 2 O) as above; idx
+// (B, Nd, K) int32 in [0, Ns); out (B, Nd, O, 3). f32, contiguous. O a
+// multiple of 4, O <= 1024, 1 <= K <= 16.
+extern "C" int lstpu_edge_mean(const void* psrc, const void* pdst,
+                               const void* idx, void* out, int B, int Ns,
+                               int Nd, int O, int K, float slope,
                                void* stream) {
-  if (B <= 0 || Ns <= 0 || Nd <= 0 || C <= 0 || O <= 0 || C % 4 || O % 4 ||
+  if (B <= 0 || Ns <= 0 || Nd <= 0 || O <= 0 || O % 4 || O / 4 > kThreads ||
       K < 1 || K > kMaxK)
     return (int)cudaErrorInvalidValue;
-  auto s = static_cast<const float*>(src);
-  auto y = static_cast<const float*>(ydst);
-  auto i = static_cast<const int32_t*>(idx);
-  auto w = static_cast<const float*>(wl_t);
-  auto d = static_cast<const float*>(d_t);
-  auto o = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (pick_tx(O)) {
-    case 8:
-      return launch<8>(s, y, i, w, d, o, B, Ns, Nd, C, O, K, slope, st);
-    case 16:
-      return launch<16>(s, y, i, w, d, o, B, Ns, Nd, C, O, K, slope, st);
-    default:
-      return launch<32>(s, y, i, w, d, o, B, Ns, Nd, C, O, K, slope, st);
-  }
+  const int P = kThreads / (O / 4);
+  const int bytes = P * K * (int)sizeof(int);
+  const dim3 grid((Nd + P - 1) / P, B);
+  mean_edges_kernel<<<grid, kThreads, bytes,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(psrc), static_cast<const float*>(pdst),
+      static_cast<const int32_t*>(idx), static_cast<float*>(out), Ns, Nd, O, K,
+      slope);
+  return (int)cudaGetLastError();
 }

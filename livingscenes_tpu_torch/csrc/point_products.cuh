@@ -1,14 +1,17 @@
-// The per-point products of vector attention: grouped f32 matrix products
-// C = A B over the (point, component) rows of a layer, launched from
-// attention.cu (lstpu_attention_products).
+// The per-point products of the fused edge layers: grouped f32 matrix
+// products C = A B over the (point, component) rows of a layer, launched
+// from attention.cu (lstpu_attention_products) and mean_edge.cu
+// (lstpu_mean_products).
 //
-// Part of the replacement of the TPU kernel
-// livingscenes_tpu/nn/pallas_attention.py::_attention_kernel, which runs the
-// edge convolution W_l nn and the direction products D y once per edge.
-// Both are linear in the gathered row, so attention.cu asks for them once
-// per point instead (see there): first the weight products D W (a few
-// blocks), then each point's row times [W | D W] (C x 4 O), which gives
-// its pre-activation rows and their directions, both branches, at once.
+// Part of the replacement of the TPU kernels
+// livingscenes_tpu/nn/pallas_attention.py::_attention_kernel and
+// ::_mean_edge_kernel, which run the edge convolution W_l nn and the
+// direction products D y once per edge. Both are linear in the gathered
+// row, so attention.cu and mean_edge.cu ask for them once per point instead
+// (see there): first the weight products D W (a few blocks), then each
+// point's row times [W | D W] (C x 4 O for attention's two branches, C x 2 O
+// for the mean's one), which gives its pre-activation rows and their
+// directions at once.
 //
 // What bounds it on the H100: at the encoder's shapes (B = 64), operations
 // at layers 4-6 (2 C flops per output, C >= 64) and bytes at layers 2-3
@@ -165,6 +168,21 @@ int launch_group(GemmGroup grp, cudaStream_t stream) {
   }
   grouped_gemm_kernel<BN><<<blocks, kGemmThreads, 0, stream>>>(grp);
   return (int)cudaGetLastError();
+}
+
+// A row-major product: A (m, k) with rows of lda floats, times bt (k, n)
+// with rows of ldb floats, into c with rows of ldc floats.
+inline Gemm row_major(const float* a, int lda, int m, const float* bt, int ldb,
+                      float* c, int ldc, int n, int k) {
+  return Gemm{a, (size_t)3 * lda, lda, 1, bt, ldb, c, ldc, m, n, k, 0, 0};
+}
+
+// Every (point, component) row of `points` (points, C, 3) features times w
+// (C, ld): out (points, 3, ld). Row (n, i) of A is feature[n][.][i], read in
+// place: A(r, c) at n 3 C + 3 c + i.
+inline Gemm point_rows(const float* f, int points, int C, const float* w,
+                       int ld, float* out) {
+  return Gemm{f, (size_t)3 * C, 1, 3, w, ld, out, ld, points * 3, ld, C, 0, 0};
 }
 
 // Launch the products of `grp` (count <= 4): tiles 128 wide when every

@@ -7,13 +7,12 @@ Counterpart of livingscenes_tpu/nn/pallas_attention.py (`fused_edge_mean`,
 features (B, N, C, 3), graph (B, N_dst, K), VecLNA weights W (O, 2C) over
 the edge [nn - dst, dst] and D (O, O). `fused_edge_mean` and
 `fused_edge_attention` take the plain version for tensors on the CPU and
-launch the kernel for CUDA tensors; there is no fallback. As in the JAX
-wrappers, the halves of the edge convolution that do not depend on the
-neighbour (W_r - W_l applied to dst, once per point) and the weight
-transposes are computed here; everything per edge is the kernel's. The
-attention kernel does all its products once per point, the destination's
-half included, in a first stage of its own (`attention_point_products_cuda`),
-and leaves its edge pass only gathers, sums and the non-linear work. Under
+launch the kernel for CUDA tensors; there is no fallback. The weight
+halves (W_l and W_r - W_l) and transposes are prepared here; both forward
+kernels do all their products once per point, the destination's half
+included, in a first stage of their own (`mean_point_products_cuda`,
+`attention_point_products_cuda`), and leave their edge passes only gathers,
+sums and the non-linear work. Under
 autograd each is a `torch.autograd.Function` that saves only its inputs and
 whose backward recomputes the edges, as the TPU kernels' do: the plain VJP
 on the CPU, the backward kernel on the card, whose per-point results (the
@@ -31,7 +30,8 @@ from ..ops.knn import gather_neighbors
 from .edge_conv import fused_edge_kv
 from .vec_layers import channel_equi_vec_normalize, leaky_relu, so3_activation
 
-mean_launches = 0  # mean_edge.cu launches since the count was last set to 0
+mean_launches = 0  # mean_edge.cu edge-pass launches since last set to 0
+mean_products_launches = 0  # its per-point products' launches (two a call)
 attention_launches = 0  # attention.cu edge-pass launches since last set to 0
 products_launches = 0  # its per-point products' launches (two a call), ditto
 mean_bwd_launches = 0  # mean_edge_bwd.cu launches since last set to 0
@@ -77,8 +77,59 @@ def _check_graph(name, src_f, dst_f, idx):
     return B, Ns, Nd, C, K
 
 
+def mean_point_products_plain(src_f, dst_f, W_l, W_delta, D):
+    """The per-point products of the mean-edge kernel: for the source points
+    Y = W_l src and Kd = D Y, for the destination points Y = W_delta dst and
+    Kd = D Y, each (B, N, 3, 2 O) with columns [Y | Kd]. W_l and W_delta
+    are (O, C)."""
+
+    def rows(W, f):
+        y = torch.einsum("oc,bnci->bnio", W, f)
+        return torch.cat([y, torch.einsum("po,bnio->bnip", D, y)], -1)
+
+    return rows(W_l, src_f), rows(W_delta, dst_f)
+
+
+def mean_point_products_cuda(src_f, dst_f, W_l, W_delta, D):
+    """The per-point products (the first stage of the mean-edge kernel) for
+    float32 tensors on the card: src_f (B, Ns, C, 3), dst_f (B, Nd, C, 3),
+    W_l, W_delta (O, C), D (O, O). Returns (p_src, p_dst) as
+    mean_point_products_plain; the kernel multiplies each point by
+    [W | D W], the weight products D W in a launch of their own before it."""
+    global mean_products_launches
+    name = "mean_products"
+    _cuda.require_cuda(name, src_f, dst_f, W_l, W_delta, D, dtype=torch.float32)
+    B, Ns, C, _ = src_f.shape
+    Nd, O = dst_f.shape[1], D.shape[0]
+    if (src_f.shape[-1] != 3 or dst_f.shape != (B, Nd, C, 3)
+            or W_l.shape != (O, C) or W_delta.shape != (O, C)
+            or D.shape != (O, O) or O % 4):
+        raise ValueError(f"{name}: src (B, Ns, C, 3), dst (B, Nd, C, 3), "
+                         "W_l, W_delta (O, C), D (O, O), O a multiple of 4")
+    dev = src_f.device
+    # [W^T | (D W)^T]: the kernel writes the second half
+    w_src = torch.empty((C, 2 * O), dtype=torch.float32, device=dev)
+    w_dst = torch.empty_like(w_src)
+    w_src[:, :O] = W_l.t()
+    w_dst[:, :O] = W_delta.t()
+    d_t = D.t().contiguous()
+    p_src = torch.empty((B, Ns, 3, 2 * O), dtype=torch.float32, device=dev)
+    p_dst = torch.empty((B, Nd, 3, 2 * O), dtype=torch.float32, device=dev)
+    err = _cuda.lib().lstpu_mean_products(
+        src_f.data_ptr(), dst_f.data_ptr(), w_src.data_ptr(), w_dst.data_ptr(),
+        d_t.data_ptr(), p_src.data_ptr(), p_dst.data_ptr(), B, Ns, Nd, C, O,
+        _cuda.stream_ptr(src_f),
+    )
+    _cuda.check(err, name)
+    mean_products_launches += 2
+    return p_src, p_dst
+
+
 def fused_edge_mean_cuda(src_f, dst_f, idx, W, D, neg_slope: float = 0.2):
-    """The kernel: float32 tensors on the card, idx int32 or int64."""
+    """The kernel: float32 tensors on the card, idx int32 or int64; O a
+    multiple of 4 up to 1024. Three launches: the two of the per-point
+    products (`mean_products_launches`), then the edge pass
+    (`mean_launches`)."""
     global mean_launches
     name = "edge_mean"
     _cuda.require_cuda(name, src_f, dst_f, W, D, dtype=torch.float32)
@@ -88,15 +139,13 @@ def fused_edge_mean_cuda(src_f, dst_f, idx, W, D, neg_slope: float = 0.2):
     if W.shape != (O, 2 * C) or D.shape != (O, O):
         raise ValueError(f"{name}: W (O, 2C), D (O, O)")
     W_l = W[:, :C]
-    y_dst = torch.einsum("oc,bnci->bnio", W[:, C:] - W_l, dst_f).contiguous()
-    wl_t = W_l.t().contiguous()
-    d_t = D.t().contiguous()
+    p_src, p_dst = mean_point_products_cuda(src_f, dst_f, W_l.contiguous(),
+                                            W[:, C:] - W_l, D)
     idx = idx.to(torch.int32)
     out = torch.empty((B, Nd, O, 3), dtype=torch.float32, device=src_f.device)
     err = _cuda.lib().lstpu_edge_mean(
-        src_f.data_ptr(), y_dst.data_ptr(), idx.data_ptr(), wl_t.data_ptr(),
-        d_t.data_ptr(), out.data_ptr(), B, Ns, Nd, C, O, K, float(neg_slope),
-        _cuda.stream_ptr(src_f),
+        p_src.data_ptr(), p_dst.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        B, Ns, Nd, O, K, float(neg_slope), _cuda.stream_ptr(src_f),
     )
     _cuda.check(err, name)
     mean_launches += 1

@@ -48,7 +48,8 @@ _SIGNATURES = {
     "lstpu_icp_stats": [_P] * 7 + [_I] * 3 + [_P],
     "lstpu_knn_topk": [_P, _P, _P, _I, _I, _I, _I, _P],
     "lstpu_layer0_edge_mean": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "lstpu_edge_mean": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "lstpu_mean_products": [_P] * 7 + [_I] * 5 + [_P],
+    "lstpu_edge_mean": [_P] * 4 + [_I] * 5 + [_F, _P],
     "lstpu_attention_products": [_P] * 8 + [_I] * 5 + [_P],
     "lstpu_edge_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
     "lstpu_scale": [_P, _P, _I, _I, _I, _P],
@@ -61,10 +62,8 @@ _SIGNATURES = {
     "lstpu_knn_max_k": [],
     "lstpu_icp_stats_block": [],
     "lstpu_knn_topk_tile": [],
-    "lstpu_knn_topk_max_points": [],
     "lstpu_knn_topk_max_top": [],
     "lstpu_scale_tile": [],
-    "lstpu_scale_max_points": [],
     "lstpu_scale_max_top": [],
     "lstpu_sinkhorn_max_points": [],
     "lstpu_sinkhorn_max_schedule": [],

@@ -75,14 +75,14 @@ def knn_with_topk_scale_plain(pc: torch.Tensor, k: int, k_top: int = 5):
 
 def knn_with_topk_scale_cuda(pc: torch.Tensor, k: int, k_top: int = 5):
     """(idx (B, N, k) int32, scale (B,)) from the kernel: pc (B, N, 3)
-    float32 on the card. The kernel leaves the `k_top` largest squared
+    float32 on the card, any N. The kernel leaves the `k_top` largest squared
     distances of each 64-row tile; the final selection over the tiles and
     the mean of the roots are taken here."""
     global topk_launches
     _cuda.require_cuda("knn_topk", pc, dtype=torch.float32)
     B, N, three = pc.shape
     lib = _cuda.lib()
-    if three != 3 or N > lib.lstpu_knn_topk_max_points():
+    if three != 3:
         raise ValueError(f"knn_topk: bad shape {tuple(pc.shape)}")
     if not 1 <= k <= min(lib.lstpu_knn_max_k(), N):
         raise ValueError(f"knn_topk: k={k} outside [1, min(16, {N})]")

@@ -32,14 +32,14 @@ def top_k_mean_pairwise_distance_plain(pc: torch.Tensor, k: int = 5) -> torch.Te
 
 
 def top_k_mean_pairwise_distance_cuda(pc: torch.Tensor, k: int = 5) -> torch.Tensor:
-    """The kernel: pc (B, N, 3) float32 on the card. It leaves the k largest
+    """The kernel: pc (B, N, 3) float32 on the card, any N. It leaves the k largest
     squared distances of each tile of rows; the selection over the tiles
     and the mean of the roots are taken here."""
     global launches
     _cuda.require_cuda("scale", pc, dtype=torch.float32)
     B, N, three = pc.shape
     lib = _cuda.lib()
-    if three != 3 or N > lib.lstpu_scale_max_points():
+    if three != 3:
         raise ValueError(f"scale: bad shape {tuple(pc.shape)}")
     if not 1 <= k <= min(lib.lstpu_scale_max_top(), N):
         raise ValueError(f"scale: k={k} outside [1, min(8, {N})]")

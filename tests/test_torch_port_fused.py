@@ -9,12 +9,15 @@ own tests do. Sizes are small (B = 2, N <= 128): interpret mode is slow.
 Tolerances:
   * knn_with_topk_scale: indices equal, scale rtol 1e-5 (f32; the port
     uses the squared-difference form, the Pallas kernel the expanded form,
-    which agree to rounding; on the lattice cloud both are exact).
+    which agree to rounding; on the lattice cloud both are exact); past
+    4096 points against JAX's XLA front end, f64 rtol 1e-12, and on a
+    lattice in f32 rtol 1e-6.
   * the three fused layer functions: rtol 2e-4, atol 2e-5, the bound the
     JAX package holds its kernels to against their XLA branches
     (tests/test_pallas_attention.py); the same for the per-point form of
-    attention (the card kernel's algebra) against the Pallas kernel, and
-    rtol 1e-9 in f64 against JAX's XLA attention path.
+    attention and of the mean-edge layer (the card kernels' algebra)
+    against the Pallas kernels, and rtol 1e-9 in f64 against JAX's XLA
+    paths.
   * whole encoder, f32: atol 1e-4 on z_so3 and z_inv, rtol 1e-4 on s and t;
     f64 against the JAX parity path and between the port's two
     configurations: rtol 1e-9 (rounding only; the graphs are identical).
@@ -36,10 +39,12 @@ from livingscenes_tpu.models import shape_prior as jsp
 from livingscenes_tpu.nn import pallas_attention as jpa
 from livingscenes_tpu.nn import pallas_layer0 as jl0
 from livingscenes_tpu.nn.edge_conv import fused_edge_kv as jfused_edge_kv
+from livingscenes_tpu.nn.vec_layers import VecLNA as JVecLNA
 from livingscenes_tpu.nn.vec_layers import (
     channel_equi_vec_normalize as j_channel_normalize,
 )
 from livingscenes_tpu.ops import pallas_knn as jknn
+from livingscenes_tpu.ops.knn import knn as jknn_xla
 from livingscenes_tpu.ops.knn import gather_neighbors as jgather
 from livingscenes_tpu.solver import pipeline as jpipe
 from livingscenes_tpu.solver import registration as jreg
@@ -102,6 +107,38 @@ def test_knn_with_topk_scale_matches_pallas(N, k, tile, lattice):
     np.testing.assert_allclose(scale_t.numpy(), np.asarray(scale_j), rtol=1e-5)
     # a point is its own nearest neighbour
     np.testing.assert_array_equal(idx_t[..., 0].numpy(), np.tile(np.arange(N), (2, 1)))
+
+
+def jax_xla_front_end(pc, k):
+    """What JAX's ShapePrior.encode takes off the TPU in place of
+    knn_with_topk_scale: normalize_input's statistic
+    (shape_prior.py:228-234, the mean of the five largest entries of the
+    full distance matrix) and the exact kNN graph of ops/knn.py."""
+    d2 = jnp.sum((pc[:, :, None, :] - pc[:, None, :, :]) ** 2, axis=-1)
+    top5, _ = jax.lax.top_k(jnp.sqrt(jnp.maximum(d2, 0.0)).reshape(pc.shape[0], -1), 5)
+    return np.asarray(jknn_xla(pc, pc, k)[1]), np.asarray(jnp.mean(top5, axis=-1))
+
+
+@pytest.mark.parametrize("lattice", [False, True])
+def test_knn_with_topk_scale_past_4096_matches_jax_xla(lattice):
+    """A cloud of 4352 points (B = 1), past the 4096 that the card's front
+    end once refused, against JAX's XLA path: random reals in f64 (indices
+    equal, scale rtol 1e-12: rounding only), and a 17 x 16 x 16 lattice in
+    f32, whose squared distances are exact in both forms and tied (the
+    lower index first on both sides; scale rtol 1e-6)."""
+    rng = np.random.default_rng(15)
+    if lattice:
+        g = np.stack(np.meshgrid(np.arange(17), np.arange(16), np.arange(16),
+                                 indexing="ij"), -1).reshape(-1, 3)
+        pc = (rng.permutation(g) - (8.0, 7.5, 7.5)).astype(np.float32)[None]
+    else:
+        pc = rng.normal(size=(1, 4352, 3))
+    idx_j, scale_j = jax_xla_front_end(jnp.asarray(pc), 16)
+    idx_t, scale_t = cuda_knn.knn_with_topk_scale(torch.from_numpy(pc), 16)
+    assert idx_t.shape == (1, 4352, 16)
+    np.testing.assert_array_equal(idx_t.numpy(), idx_j)
+    np.testing.assert_allclose(scale_t.numpy(), scale_j,
+                               rtol=1e-6 if lattice else 1e-12)
 
 
 @pytest.mark.parametrize("N,K,O", [(64, 8, 16), (128, 16, 32), (64, 16, 48)])
@@ -198,18 +235,68 @@ def jax_xla_attention(src, dst, idx, q_n, W_K, D_K, W_V, D_V, head_c):
     return jnp.einsum("bnkc,bnkci->bnci", attn, v_f)
 
 
+def per_point_mean(src, dst, idx, W, D, slope=0.2):
+    """The algebra of the card's mean-edge kernel in plain PyTorch: the
+    products once per source and destination point
+    (mean_point_products_plain), then per edge only the gather, the sum of
+    the two halves, the activation and the mean over K."""
+    C, O = src.shape[2], W.shape[0]
+    W_l = W[:, :C]
+    p_src, p_dst = cuda_attention.mean_point_products_plain(
+        src, dst, W_l, W[:, C:] - W_l, D)  # (B, N, 3, 2O): [Y | D Y]
+    p = gather_neighbors(p_src, idx) + p_dst[:, :, None]  # (B, Nd, K, 3, 2O)
+    f = so3_activation(p[..., :O].transpose(-1, -2),
+                       p[..., O:].transpose(-1, -2), leaky_relu(slope))
+    return torch.mean(f, dim=2)
+
+
+def jax_xla_mean(src, dst, idx, W, D):
+    """JAX's XLA path of the mean-edge layer (the edge [nn - dst, dst]
+    materialised, VecLNA, mean over K; tests/test_pallas_attention.py), in
+    the inputs' precision."""
+    B, Ns, C, _ = src.shape
+    nn_f = jgather(src.reshape(B, Ns, C * 3), idx).reshape(*idx.shape, C, 3)
+    dst_pad = jnp.broadcast_to(dst[:, :, None], nn_f.shape)
+    edge = jnp.concatenate([nn_f - dst_pad, dst_pad], axis=-2)
+    lna = JVecLNA(2 * C, W.shape[0], act_func=lambda x: jax.nn.leaky_relu(x, 0.2),
+                  mode="so3")
+    params = {"params": {"lin": {"weight": W}, "act": {"lin_dir": {"weight": D}}}}
+    return jnp.mean(lna.apply(params, edge), axis=2)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize(
     "Ns,Nd,C,O,K,head_c",
-    [(64, 32, 16, 48, 8, 16), (128, 32, 8, 32, 16, 8), (40, 40, 12, 8, 5, 4)],
+    [(64, 32, 16, 48, 8, 16), (128, 32, 8, 32, 16, 8), (40, 40, 12, 8, 5, 4),
+     # head_c None: the mean-edge layer
+     pytest.param(64, 64, 16, 32, 16, None, id="mean-64-64-16-32-16"),
+     pytest.param(64, 32, 12, 8, 5, None, id="mean-64-32-12-8-5")],
 )
 def test_per_point_factorisation_matches_jax(Ns, Nd, C, O, K, head_c, dtype):
-    """f32: against JAX's fused_edge_attention (the Pallas kernel in
-    interpret mode) at the file's tolerance. f64: against JAX's XLA path in
-    f64 at rtol 1e-9 (rounding only)."""
+    """The per-point form of attention (head_c given) or of the mean-edge
+    layer (head_c None). f32: against JAX's fused_edge_attention or
+    fused_edge_mean (the Pallas kernel in interpret mode) at the file's
+    tolerance. f64: against JAX's XLA path in f64 at rtol 1e-9 (rounding
+    only)."""
     rng = np.random.default_rng(14)
     src, dst = f32(rng, 2, Ns, C, 3), f32(rng, 2, Nd, C, 3)
     idx = rng.integers(0, Ns, (2, Nd, K)).astype(np.int32)
+    if head_c is None:
+        W, D = f32(rng, O, 2 * C, scale=0.2), f32(rng, O, O, scale=0.2)
+        args = [a.astype(dtype) for a in (src, dst)] + [idx] + [
+            a.astype(dtype) for a in (W, D)]
+        got = per_point_mean(
+            *(torch.from_numpy(a) for a in args[:2]),
+            torch.from_numpy(idx).long(),
+            *(torch.from_numpy(a) for a in args[3:])).numpy()
+        jargs = [jnp.asarray(a) for a in args]
+        if dtype == "float32":
+            want = jpa.fused_edge_mean(*jargs, interpret=True)
+            np.testing.assert_allclose(got, np.asarray(want), rtol=2e-4, atol=2e-5)
+        else:
+            want = jax_xla_mean(*jargs)
+            np.testing.assert_allclose(got, np.asarray(want), rtol=1e-9, atol=1e-12)
+        return
     q_n = np.array(j_channel_normalize(jnp.asarray(f32(rng, 2, Nd, O, 3))))
     W_K, W_V = f32(rng, O, 2 * C, scale=0.2), f32(rng, O, 2 * C, scale=0.2)
     D_K, D_V = f32(rng, O, O, scale=0.2), f32(rng, O, O, scale=0.2)
@@ -372,7 +459,7 @@ def test_port_sources_import_no_jax():
             assert not pattern.search(f.read()), path
     for name in ("nn/cuda_layer0.py", "nn/cuda_attention.py", "csrc/knn_topk.cu",
                  "csrc/layer0.cu", "csrc/mean_edge.cu", "csrc/attention.cu",
-                 "csrc/point_products.cuh",
+                 "csrc/point_products.cuh", "csrc/pair_scan.cuh",
                  "csrc/edge_common.cuh", "csrc/scale.cu", "csrc/sinkhorn.cu",
                  "csrc/top_multiset.cuh", "ops/cuda_scale.py",
                  "ops/cuda_sinkhorn.py"):

@@ -9,7 +9,8 @@ block's threads as OS threads, barriers for __syncthreads and the warp
 shuffles, dynamic shared memory poisoned with NaN; the warp reductions,
 cp.async and its waits). Only the launches
 `kernel<<<grid, block, shared, stream>>>(...)` and the `extern __shared__`
-declarations are rewritten; atomicAdd is a compare-and-swap loop. The port's real
+declarations are rewritten; atomicAdd and atomicMax are compare-and-swap
+loops. The port's real
 wrappers then call the emulated library on CPU tensors, so their argument
 preparation (layouts, transposes, the dst halves) is covered too.
 
@@ -58,6 +59,7 @@ CUDA_RUNTIME_STAND_IN = r'''// A stand-in for <cuda_runtime.h> that lets a host 
 // pair of barriers over the warp's 32 threads, so every thread of a warp
 // must reach a shuffle, as on the card. atomicAdd on a float is a
 // compare-and-swap loop on a std::atomic_ref, on an unsigned a fetch_add;
+// atomicMax on an unsigned a compare-and-swap loop;
 // __threadfence a sequentially consistent fence (a counter in device memory
 // is then seen by the blocks that follow). Dynamic shared memory is filled
 // with NaN before every block: a kernel that reads shared memory it never
@@ -120,6 +122,13 @@ inline float atomicAdd(float* address, float v) {
 }
 inline unsigned atomicAdd(unsigned* address, unsigned v) {
   return std::atomic_ref<unsigned>(*address).fetch_add(v);
+}
+inline unsigned atomicMax(unsigned* address, unsigned v) {
+  std::atomic_ref<unsigned> ref(*address);
+  unsigned old = ref.load();
+  while (old < v && !ref.compare_exchange_weak(old, v)) {
+  }
+  return old;
 }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 
@@ -243,6 +252,11 @@ inline unsigned __float_as_uint(float f) {
   unsigned u;
   std::memcpy(&u, &f, sizeof u);
   return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
 }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 // cp.async through the pipeline primitives of <cuda_pipeline.h>: here a
@@ -467,7 +481,12 @@ def test_knn_kernel_forms(on_host, form, Nq, Np, D, k):
     torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-5 * float(dp.max()))
 
 
-@pytest.mark.parametrize("N,k,tied", [(100, 16, False), (256, 16, True), (20, 5, False)])
+@pytest.mark.parametrize(
+    "N,k,tied",
+    [(100, 16, False), (256, 16, True),
+     (20, 5, False),      # fewer points than the 64 that seed the lists
+     (1100, 16, False)],  # three column chunks of 512, the last ragged
+)
 def test_knn_topk_kernel(on_host, N, k, tied):
     rng = np.random.default_rng(2)
     pc = f32(rng, 2, N, 3)
@@ -477,6 +496,19 @@ def test_knn_topk_kernel(on_host, N, k, tied):
     ip, sp = cuda_knn.knn_with_topk_scale_plain(pc, k)
     assert ik.dtype == torch.int32 and torch.equal(ik.long(), ip)
     torch.testing.assert_close(sk, sp, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_knn_topk_kernel_past_old_cap(on_host, tied):
+    # 4352 points, past the 4096 the kernel once refused: 8.5 column chunks;
+    # tied: a 17 x 16 x 16 lattice. The distances are the plain version's
+    # bits, so graph and scale are equal.
+    rng = np.random.default_rng(21)
+    pc = lattice(rng, (17, 16, 16))[None] if tied else f32(rng, 1, 4352, 3)
+    ik, sk = cuda_knn.knn_with_topk_scale_cuda(pc, 16)
+    ip, sp = cuda_knn.knn_with_topk_scale_plain(pc, 16)
+    assert torch.equal(ik.long(), ip)
+    assert torch.equal(sk, sp)
 
 
 @pytest.mark.parametrize(
@@ -520,14 +552,47 @@ def test_layer0_kernel(on_host, N, K, O):
 
 
 @pytest.mark.parametrize(
-    "Ns,Nd,C,O,K", [(50, 50, 32, 32, 16), (40, 21, 16, 48, 8), (30, 5, 36, 140, 7)])
+    "Ns,Nd,C,O,K",
+    [
+        (50, 50, 32, 32, 16),  # the widths of layer 1: 32 points a block
+        (40, 21, 16, 48, 8),
+        (30, 5, 36, 140, 7),   # 7 points a block, 245 of 256 threads
+        (60, 50, 8, 24, 16),   # 42 points a block: the second partial
+        (30, 70, 6, 4, 3),     # Nd > Ns, O = 4: 256 points a block; C % 4
+        (20, 3, 128, 256, 11),  # one point a block of 64 threads
+    ],
+)
 def test_mean_edge_kernel(on_host, Ns, Nd, C, O, K):
     rng = np.random.default_rng(5)
     src, dst = f32(rng, 2, Ns, C, 3), f32(rng, 2, Nd, C, 3)
     idx = torch.as_tensor(rng.integers(0, Ns, (2, Nd, K)))
     W, D = f32(rng, O, 2 * C, scale=0.2), f32(rng, O, O, scale=0.2)
+    before = (cuda_attention.mean_launches,
+              cuda_attention.mean_products_launches)
     assert_close(cuda_attention.fused_edge_mean_cuda(src, dst, idx, W, D),
                  cuda_attention.fused_edge_mean_plain(src, dst, idx, W, D))
+    # the products' two launches, then the edge pass
+    assert (cuda_attention.mean_launches - before[0],
+            cuda_attention.mean_products_launches - before[1]) == (1, 2)
+
+
+@pytest.mark.parametrize(
+    "Ns,Nd,C,O",
+    [
+        (40, 21, 12, 8),     # narrowest: one 64-wide column tile, 16 used
+        (300, 7, 36, 64),    # 7 row tiles of sources, the last partial
+        (5, 130, 132, 144),  # depth 132: a partial slice; five column tiles
+        (17, 9, 6, 4),       # C no multiple of 4
+    ],
+)
+def test_mean_products_kernel(on_host, Ns, Nd, C, O):
+    rng = np.random.default_rng(20)
+    src, dst = f32(rng, 2, Ns, C, 3), f32(rng, 2, Nd, C, 3)
+    W_l, W_delta = f32(rng, O, C, scale=0.2), f32(rng, O, C, scale=0.2)
+    D = f32(rng, O, O, scale=0.2)
+    args = (src, dst, W_l, W_delta, D)
+    assert_all_close(cuda_attention.mean_point_products_cuda(*args),
+                     cuda_attention.mean_point_products_plain(*args))
 
 
 @pytest.mark.parametrize(
@@ -572,7 +637,10 @@ def test_attention_kernel(on_host, Ns, Nd, C, O, K, head_c):
                  cuda_attention.fused_edge_attention_plain(*args))
 
 
-@pytest.mark.parametrize("N,k,tied", [(100, 5, False), (150, 5, True), (7, 5, False), (64, 8, False)])
+@pytest.mark.parametrize(
+    "N,k,tied",
+    [(100, 5, False), (150, 5, True), (7, 5, False), (64, 8, False),
+     (1100, 5, True)])  # three column chunks of 512, the last ragged
 def test_scale_kernel(on_host, N, k, tied):
     rng = np.random.default_rng(7)
     pc = f32(rng, 3, N, 3)
