@@ -14,8 +14,8 @@
    shapes) get the trained weights and the activations of a plain forward
    of the trained model; the mean edge and attention layers are timed
    whole and their per-point products alone, beside the bytes their edge
-   passes gather. The kNN + scale, mean edge, ICP statistics, kNN and FPS
-   kernels are timed by CUDA graph replays (their wrappers' host time
+   passes gather. The kNN + scale, layer 0, mean edge, ICP statistics, kNN
+   and FPS kernels are timed by CUDA graph replays (their wrappers' host time
    would show), and the ICP statistics must give the same bits on a
    second launch. The kNN + scale kernel's graph must equal the plain
    version's exactly (the same distance bits), also past the 4096 points
@@ -65,8 +65,10 @@
    decide, timed, and at small ragged shapes (in 3.). Then
    livingscenes_tpu_torch.train.run.main runs configs/production_r5.yaml
    (full width, batch 64) from the r5 checkpoint for 20 steps with the
-   launch counts checked, every plain version forbidden and the backward
-   kernels' launches timed as they run; from its state
+   launch counts checked (the attention backward's edge pass and, apart,
+   its five launches of per-point products and reductions), every plain
+   version forbidden and the backward kernels' launches timed as they run;
+   from its state
    the step is timed (data, forward, backward, optimizer; peak memory), one
    step at batch 8 is held against the CPU, a checkpoint makes a round
    trip, and 30 steps from a fresh init must lower the loss.
@@ -114,12 +116,15 @@ TRAIN_TIMED_STEPS = 10  # timed steps after 3 of warm-up
 TRAIN_FRESH_STEPS = 30  # steps from a fresh init whose loss must fall
 TRAIN_CPU_BATCH = 8  # batch of the card-against-CPU step
 # kernel launches of one training step: FPS at layers 2, 4, 5, a kNN graph
-# per layer, each fused layer forward and backward
+# per layer, each fused layer forward and backward (the attention backward's
+# edge pass after its two launches of per-point rows, and before its three
+# of products and reductions, at each of the five layers)
 TRAIN_STEP_LAUNCHES = {"fps": 3, "knn": 7, "layer0": 1, "edge_mean": 1,
                        "edge_mean_products": 2,
                        "edge_attention": 5, "edge_attention_products": 10,
                        "layer0_bwd": 1, "edge_mean_bwd": 1,
-                       "edge_attention_bwd": 5}
+                       "edge_attention_bwd": 5,
+                       "edge_attention_bwd_products": 25}
 # (Nq, Np, C_in) of the kNN graph of encoder layers 0-6; D = 3 C_in.
 KNN_LAYERS = [(1024, 1024, 1), (1024, 1024, 32), (512, 1024, 32),
               (512, 512, 64), (128, 512, 64), (32, 128, 128), (32, 32, 256)]
@@ -804,10 +809,11 @@ def phase_fused_layers(torch, report, calls):
             shape = f"{kind} B={Bn} Ns={ns} Nd={nd} C={C} O={O} K={K}"
             err = check_close(shape, got, want)
             del got
-            # row 6 by graph replays (its launches are short enough for the
-            # wrapper's host time to show), rows 5 and 7 as before
-            ms = (graph_ms(torch, lambda: kernel(*args), 10, 5)
-                  if kind == "edge_mean" else cuda_ms(torch, lambda: kernel(*args), 10))
+            # rows 5 and 6 by graph replays (their launches are short enough
+            # for the wrappers' host time to show), row 7 as before
+            ms = (cuda_ms(torch, lambda: kernel(*args), 10)
+                  if kind == "edge_attention"
+                  else graph_ms(torch, lambda: kernel(*args), 10, 5))
             plain = cuda_ms(torch, lambda: plain_fn(*args), 3, 1)
             bms, by = bound_ms(flops, nbytes)
             bms_wd = bound_ms(edge_work(kind, args, w_then_d=True)[0], nbytes)[0]
@@ -1186,7 +1192,9 @@ def phase_small_shapes(torch, report):
             name = f"knn_topk small N={n} k={k}"
             check_knn_topk(torch, name, f32(2, n, 3), k, 5)
             done.append(name)
-        for n, K, O in ((40, 16, 32), (33, 8, 48), (18, 16, 132)):
+        # layer 0 also past the 48 KB of points it keeps in shared memory
+        for n, K, O in ((40, 16, 32), (33, 8, 48), (18, 16, 132),
+                        (5000, 16, 32)):
             args = (f32(2, n, 3), graph(n, n, K), f32(O, 3, scale=0.5),
                     f32(O, O, scale=0.2))
             name = f"layer0 small N={n} K={K} O={O}"
@@ -1328,6 +1336,9 @@ def counters():
             "layer0_bwd": (cuda_layer0, "bwd_launches"),
             "edge_mean_bwd": (cuda_attention, "mean_bwd_launches"),
             "edge_attention_bwd": (cuda_attention, "attention_bwd_launches"),
+            # row 14's per-point products and reductions: five a backward
+            "edge_attention_bwd_products": (cuda_attention,
+                                            "attention_bwd_products_launches"),
             "scale": (cuda_scale, "launches"),
             "sinkhorn": (cuda_sinkhorn, "launches"),
             "sinkhorn_bwd": (cuda_sinkhorn, "bwd_launches"),
@@ -2638,7 +2649,11 @@ def summary_line(report) -> str:
     mean = report["edge_mean"]["shapes"][0]
     knn = "/".join(f"{row['ms']:.3f}" for row in report["knn"]["shapes"][1:])
     fps = "/".join(f"{row['ms']:.3f}" for row in report["fps"]["shapes"])
-    heads = (f"row 2 {report['knn']['fused_path']['ms']:.3f} ms in 12 launches "
+    attn_bwd = "/".join(f"{row['ms']:.3f}"
+                        for row in report["edge_attention_bwd"]["shapes"])
+    heads = (f"row 5 {report['layer0']['ms']:.4f} ms in 2, row 14 layers 2-6 "
+             f"{attn_bwd} ms a step, "
+             f"row 2 {report['knn']['fused_path']['ms']:.3f} ms in 12 launches "
              f"(layers 1-6 {knn}), row 1 {report['fps']['ms']:.3f} ms in 7 "
              f"({fps}), "
              f"row 7 {report['edge_attention']['ms']:.3f} ms in 10 launches "
@@ -2765,8 +2780,13 @@ def main() -> int:
         })
     # rows 6 and 7 are three launches a layer: the edge pass, which
     # `launches` counts, after the two of its per-point products, counted
-    # apart
+    # apart; row 14 six: its edge pass and five of products and reductions
     idle = [k["name"] for k in kernels if not k["launches"]]
+    row14 = next(k for k in kernels if k["name"] == "edge_attention_bwd")
+    row14["products_launches"] = report["training"]["launches"].get(
+        "edge_attention_bwd_products", 0)
+    if not row14["products_launches"]:
+        idle.append("edge_attention_bwd_products")
     for name in ("edge_mean", "edge_attention"):
         row = next(k for k in kernels if k["name"] == name)
         row["products_launches"] = launches[f"{name}_products"]

@@ -4,154 +4,261 @@
 // dst), q_n, the W_l halves of W_K and W_V, D_K and D_V.
 //
 // Replaces the TPU kernel
-// livingscenes_tpu/nn/pallas_attention.py::_attention_bwd_kernel. A block
-// owns whole destination points (edge_common.cuh), so the softmax over each
-// point's K edges and its backward stay inside the block:
-//   1. V branch forward: vf, and d_attn[e][h] = sum_{o in h} g[n][o] . vf[o]
-//   2. K branch forward: kf, the logits and the softmax (attention.cu),
-//      keeping the head sums S_h of kf . q_n
-//   3. d_logit = attn (d_attn - sum_k attn d_attn); per edge the cotangent
-//      of max(|k|, 1e-12), -(sum_h d_logit_h S_h / sqrt(3 head_c)) / cross^2
-//      (masked to cross > 1e-12)
-//   4. K branch backward (edge_bwd.cuh branch_bwd): the channel
-//      normalisation's VJP per channel gives d_kf, and d_q_n, summed over
-//      the point's edges; then d_ydst (K half), d_W_Kl, the scatter of
-//      d_y W_Kl to the sources, d_D_K
-//   5. V branch backward, from d_vf = attn g: the same for the V half.
-// Nothing per edge leaves the block but the scatter to the sources; the
-// weight gradients go to the block's replica (edge_bwd.cuh). The tie rules
-// are JAX's: where(qpara >= 0, ...), r > 1e-12, max(., 1e-12) in the
-// channel normalisation of K.
+// livingscenes_tpu/nn/pallas_attention.py::_attention_bwd_kernel, which
+// recomputes the forward per edge (both edge convolutions and direction
+// products) and runs every product of the VJP per edge. Per branch, for
+// edge e = (n, k) with source j = idx[n, k], the forward is linear in the
+// per-point rows of attention.cu (point_products.cuh):
+//   y[e] = Ysrc[j] + Ydst[n],  D y[e] = Kdsrc[j] + Kddst[n]
+// with P_src = src [W_l | D W_l] and P_dst = dst [W_delta | D W_delta]. Only
+// the activation, the channel normalisation, the head scores and the
+// softmax are per edge; they give per edge the cotangents d_y[e] and
+// d_kd[e] (O x 3 each) of y and D y. Everything after them is linear. With
+// U_j, V_j the sums of d_y and d_kd over the edges whose source is j, and
+// Ub_n, Vb_n the sums over n's own K edges:
+//   d_src[j]  = W_l^T U_j + (D W_l)^T V_j = W_l^T Z_j,  Z_j = U_j + D^T V_j
+//   d_ydst[n] = Ub_n + D^T Vb_n = Z_n,  d_dst[n] = W_delta^T Z_n
+//   d_D       = sum_j V_j Ysrc_j^T + sum_n Vb_n Ydst_n^T
+//   d_W_l     = sum_j Z_j src_j^T,  d_W_delta = sum_n Z_n dst_n^T
+// so the products run once per point or as reductions over the points.
+// Six launches a layer, the edge pass counted apart from the five others:
 //
-// What bounds it on the H100: operations, per edge 3 (12 O O + 8 C O) flops
-// (both branches' conv and direction recomputed, V twice and K twice, d_y
-// D, d_D, d_y W_l, d_W_l).
-#include "edge_bwd.cuh"
+// 1. lstpu_attention_products (attention.cu, two launches): P_src and P_dst
+//    again. The autograd Function saves only its inputs (the forward's rows
+//    are 200 MB at layer 2), so the backward recomputes them.
+// 2. attention_bwd_edges_kernel (this file, one launch): per edge the
+//    nonlinear VJP. Thread layout of attention.cu's edge pass: a block of
+//    256 threads owns P = 256 / (O / 4) destination points with all their
+//    edges, thread (point, quad) 4 channels of one point, so the
+//    destination's rows, q_n and the cotangent g stay in its registers
+//    while it walks the point's K edges three times (K forward: the
+//    scores; V forward and backward: d_attn, and the VJP from
+//    d_vf = attn g; K backward), each time gathering its source's 16-byte
+//    pieces of the Y and Kd rows from L2.
+//    The softmax and its backward over each (point, head) stay in shared
+//    memory, as in attention.cu. It sums d_q_n, Ub_n and Vb_n over the K
+//    edges in ascending k in registers and writes them once; U_j and V_j
+//    go to the sources as vector float atomics (atomicAdd on a float4, one
+//    red.global.add.v4.f32 on sm_90) into a zeroed buffer with P_src's
+//    layout: 12 O floats an edge over both branches.
+// 3. lstpu_attention_bwd_products (this file, three launches of
+//    point_products.cuh): Z = U + D^T V for every source and destination
+//    row (in place of U) beside the split reductions of d_D_K and d_D_V;
+//    then d_src = Z_src W_l and d_dst = Z_dst W_delta (per point) beside
+//    the split reductions of d_W_l and d_W_delta; then the fold of the
+//    reductions' partial sums.
+//
+// What bounds it on the H100: operations (chip_smoke.py edge_work with
+// backward=True counts the same products once per point): the per-point
+// products of point_products.cuh, and per edge and channel the two
+// activations, their VJPs, the channel normalisation's and the softmax's.
+// The edge pass gathers 3 x 24 O bytes an edge from L2 and adds 48 O bytes
+// an edge by atomics.
+//
+// Sums: U_j and V_j are added with float atomics in no fixed order, so
+// d_src, d_W_l and d_D agree with the plain version to rounding, not bit
+// for bit, and differ from run to run at rounding; the reductions over the
+// points and every sum over a point's own edges are in a fixed order. The
+// tie rules are JAX's: where(qpara >= 0, ...), r > 1e-12, max(., 1e-12) in
+// the channel normalisation of K.
+#include "edge_common.cuh"
+#include "point_products.cuh"
 
 namespace {
 
 using namespace lstpu_edge;
 
-template <int TX>
-struct Smem {
-  int idx, cross, dcross, w, dl, sh, bs, nn, part, y, dkt, total;
-  __host__ __device__ Smem(int C, int O, int H) {
-    using T = Tile<TX>;
-    const int part_size = 2 * T::EB * (O / 4);
+constexpr int kMaxO = 512;
+
+// float offsets into the dynamic shared memory of the edge pass
+struct EdgeBwdSmem {
+  int idx, cross, dcross, w, dl, sh, sq, c2q, total;
+  __host__ __device__ EdgeBwdSmem(int O, int K, int head_c) {
+    const int Oq = O / 4, E = (kThreads / Oq) * K, H = O / head_c;
     idx = 0;
-    cross = idx + T::EB;     // max(|k|, 1e-12) per edge
-    dcross = cross + T::EB;  // its cotangent
-    w = dcross + T::EB;      // (EB, H) attention weights
-    dl = w + T::EB * H;      // (EB, H) d_attn, then d_logit / sqrt(3 head_c)
-    sh = dl + T::EB * H;     // (EB, H) head sums of kf . q_n
-    bs = sh + T::EB * H;
-    nn = bs + T::BS;
-    part = nn + T::EB * 3 * row_stride(C);  // partial sums, later the K sum
-    y = part + (part_size > T::RED ? part_size : T::RED);
-    dkt = y + T::EB * 3 * row_stride(O);
-    total = dkt + T::EB * 3 * (T::OT + 4);
+    cross = idx + E;       // max(|k|, 1e-12) per edge
+    dcross = cross + E;    // its cotangent
+    w = dcross + E;        // (E, H) softmax weights
+    dl = w + E * H;        // (E, H) d_attn, then d_logit / sqrt(3 head_c)
+    sh = dl + E * H;       // (E, H) head sums of kf . q_n
+    sq = sh + E * H;       // (E, O / 4) partial sums of g . vf, then kf . q_n
+    c2q = sq + E * Oq;     // (E, O / 4) partial sums of knorm^2
+    total = c2q + E * Oq;
   }
 };
 
-template <int TX>
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_kernel(const float* __restrict__ src,
-                         const float* __restrict__ ydst,
-                         const float* __restrict__ qn,
-                         const int32_t* __restrict__ idx,
-                         const float* __restrict__ wl_t,
-                         const float* __restrict__ WK,
-                         const float* __restrict__ WV,
-                         const float* __restrict__ dk_t,
-                         const float* __restrict__ dv_t,
-                         const float* __restrict__ DK,
-                         const float* __restrict__ DV,
-                         const float* __restrict__ g, float* d_src,
-                         float* __restrict__ d_ydst, float* __restrict__ d_qn,
-                         float* rep, int Ns, int Nd, int C, int O, int K,
-                         int head_c, float slope) {
+// y = Y + yd and kd = Kd + kdd of the thread's 4 channels of one edge: the
+// source's rows at ps (Y) and ps + kd_off (Kd), stride ld, plus the
+// destination's.
+__device__ __forceinline__ void edge_rows(const float* __restrict__ ps,
+                                          int kd_off, int ld,
+                                          const float (&yd)[3][4],
+                                          const float (&kdd)[3][4],
+                                          float (&y)[3][4], float (&kd)[3][4]) {
+  load12(ps, y, ld);
+  load12(ps + kd_off, kd, ld);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      y[i][v] += yd[i][v];
+      kd[i][v] += kdd[i][v];
+    }
+}
+
+// The 12 floats of the thread's 4 channels of a (channel, component) row:
+// p[0..11] of q_n or g.
+__device__ __forceinline__ void load_quad(const float* __restrict__ p,
+                                          float (&v)[12]) {
+  const float4* p4 = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    const float4 a = p4[t];
+    v[4 * t] = a.x;
+    v[4 * t + 1] = a.y;
+    v[4 * t + 2] = a.z;
+    v[4 * t + 3] = a.w;
+  }
+}
+
+// rows[i * ld .. + 3] += v[i][0..3] for i < 3, by vector atomics.
+__device__ __forceinline__ void add12(float* rows, int ld,
+                                      const float (&v)[3][4]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    atomicAdd(reinterpret_cast<float4*>(rows + (size_t)i * ld),
+              make_float4(v[i][0], v[i][1], v[i][2], v[i][3]));
+}
+
+// rows[i * ld .. + 3] = v[i][0..3] for i < 3.
+__device__ __forceinline__ void store12(float* rows, int ld,
+                                        const float (&v)[3][4]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    *reinterpret_cast<float4*>(rows + (size_t)i * ld) =
+        make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+}
+
+// two blocks an SM: at most 128 registers a thread
+__global__ void __launch_bounds__(kThreads, 2)
+    attention_bwd_edges_kernel(const float* __restrict__ psrc,
+                               const float* __restrict__ pdst,
+                               const float* __restrict__ qn,
+                               const int32_t* __restrict__ idx,
+                               const float* __restrict__ g, float* gsrc,
+                               float* __restrict__ gdst,
+                               float* __restrict__ dqn, int Ns, int Nd, int O,
+                               int K, int head_c, float slope) {
   extern __shared__ __align__(16) float smem[];
-  using T = Tile<TX>;
-  constexpr int NT = BwdTiles<TX>::NT;
-  const int H = O / head_c, Oq = O / 4;
-  const Smem<TX> lay(C, O, H);
+  const int Oq = O / 4, H = O / head_c, P = kThreads / Oq;
+  const EdgeBwdSmem lay(O, K, head_c);
   int* idx_s = reinterpret_cast<int*>(smem + lay.idx);
   float* cross_s = smem + lay.cross;
   float* dcross_s = smem + lay.dcross;
   float* w_s = smem + lay.w;
   float* dl_s = smem + lay.dl;
   float* sh_s = smem + lay.sh;
-  float* Bs = smem + lay.bs;
-  float* nn_s = smem + lay.nn;
-  float* sq = smem + lay.part;
-  float* c2q = sq + T::EB * Oq;
-  float* y_s = smem + lay.y;
-  float* dkt = smem + lay.dkt;
-  const int ldn = row_stride(C), ldy = row_stride(O), ldt = T::OT + 4;
-  const Block blk = make_block<TX>(Nd, K);
-  const int to = threadIdx.x % TX, te = threadIdx.x / TX;
-  const float* ydst_b = ydst + (size_t)blk.b * Nd * 3 * (2 * O);
-  const float* qn_b = qn + (size_t)blk.b * Nd * O * 3;
-  const float* g_b = g + (size_t)blk.b * Nd * O * 3;
-  float* dsrc_b = d_src + (size_t)blk.b * Ns * C * 3;
-  float* dydst_b = d_ydst + (size_t)blk.b * Nd * 3 * (2 * O);
-  float* rep_b = replica(rep, (size_t)C * 2 * O + 2 * (size_t)O * O);
-  float* dWl = rep_b;                      // (C, 2 O) = d(W_l^T), K then V
-  float* dDK = rep_b + (size_t)C * 2 * O;  // (O, O)
-  float* dDV = dDK + (size_t)O * O;
+  float* sq = smem + lay.sq;
+  float* c2q = smem + lay.c2q;
 
-  load_idx<TX>(idx_s, idx, blk);
-  zero_pad(nn_s, T::EB * 3, ldn, C);
-  zero_pad(y_s, T::EB * 3, ldy, O);
-  __syncthreads();
-  gather_rows<TX>(nn_s, ldn, src + (size_t)blk.b * Ns * C * 3, C, idx_s);
+  Block blk;
+  blk.b = blockIdx.y;
+  blk.tn = P;
+  blk.n0 = blockIdx.x * P;
+  blk.e_act = min(P, Nd - blk.n0) * K;
+  blk.K = K;
+  blk.Nd = Nd;
+  const int32_t* idx_b = idx + ((size_t)blk.b * Nd + blk.n0) * K;
+  for (int e = threadIdx.x; e < blk.e_act; e += kThreads) idx_s[e] = idx_b[e];
   __syncthreads();
 
-  float acc[kEPT][3][4];
-  // 1. V branch forward: sq[e][o / 4] = sum of g[n][o'] . vf[o'] over the
-  // thread's four columns; then their head sums, d_attn, into dl_s
-  conv_rows<TX>(y_s, ldy, nn_s, ldn, C, wl_t + O, 2 * O, O, ydst_b + O, 2 * O,
-                blk, Bs);
-  for (int o0 = 0; o0 < O; o0 += T::OT) {
-    gemm<TX>(acc, y_s, ldy, O, dv_t, O, o0, O, Bs);
-    const int o = o0 + 4 * to;
-    if (o >= O) continue;
-    activate<TX>(acc, y_s, ldy, o, slope);
+  const int ld = 4 * O;  // row length of the per-point products
+  const int pl = threadIdx.x / Oq, o = 4 * (threadIdx.x % Oq);
+  const int n = blk.n0 + pl;
+  const bool on = pl < P && n < Nd;
+  const size_t pt = (size_t)blk.b * Nd + n;  // the destination point
+  const float* psrc_b = psrc + (size_t)blk.b * Ns * 3 * ld;
+  const float* pdst_n = pdst + pt * 3 * ld;
+  float* gsrc_b = gsrc + (size_t)blk.b * Ns * 3 * ld;
+  const int* idx_n = idx_s + pl * K;
+  // g[n][o..o+3][0..2] and q_n likewise, each loaded where it is used
+  const float* g_n = g + (pt * O + o) * 3;
+  const float* q_nn = qn + (pt * O + o) * 3;
+  float gq[12], q[12], yd[3][4], kdd[3][4], f[3][4];
+
+  // 1. K branch forward, as attention.cu: the key scores, then cross, the
+  // logits and the softmax (attention_weights), with the head sums in sh_s
+  if (on) {
+    load_quad(q_nn, q);
+    load12(pdst_n + o, yd, ld);
+    load12(pdst_n + 2 * O + o, kdd, ld);
+    for (int k = 0; k < K; ++k) {
+      edge_features(psrc_b + (size_t)idx_n[k] * 3 * ld + o, ld, yd, kdd,
+                    slope, f);
+      const int e = pl * K + k;
+      quad_key_score(f, q, sq[e * Oq + o / 4], c2q[e * Oq + o / 4]);
+    }
+  }
+  attention_weights(sq, c2q, cross_s, w_s, sh_s, O, head_c, blk);
+
+  float* gdst_n = gdst + pt * 3 * ld;
+  const int head = o / head_c;  // the quad lies in one head
+  float y[3][4], kd[3][4], dy[3][4], dkd[3][4], ub[3][4], vb[3][4];
+
+  // 2. V branch, forward and backward in one walk over the edges: vf gives
+  // sq[e][o / 4], the sum of g[n][o'] . vf[o'] over the thread's four
+  // channels (its head sums are d_attn), and d_vf = attn g the activation's
+  // VJP d_y and d_kd
+  if (on) {
 #pragma unroll
-    for (int j = 0; j < kEPT; ++j) {
-      const int e = te * kEPT + j;
-      if (e >= blk.e_act) continue;
-      const float* gp = g_b + ((size_t)(blk.n0 + e / K) * O + o) * 3;
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) ub[i][v] = vb[i][v] = 0.0f;
+    load_quad(g_n, gq);
+    load12(pdst_n + O + o, yd, ld);
+    load12(pdst_n + 3 * O + o, kdd, ld);
+    for (int k = 0; k < K; ++k) {
+      const int j = idx_n[k], e = pl * K + k;
+      edge_rows(psrc_b + (size_t)j * 3 * ld + O + o, 2 * O, ld, yd, kdd, y,
+                kd);
+      const float wt = w_s[e * H + head];
       float s = 0.0f;
 #pragma unroll
-      for (int v = 0; v < 4; ++v)
+      for (int v = 0; v < 4; ++v) {
+        const float yv[3] = {y[0][v], y[1][v], y[2][v]};
+        const float k3[3] = {kd[0][v], kd[1][v], kd[2][v]};
+        float fv[3], gy[3], gk[3];
+        vec_act(yv, k3, slope, fv);
 #pragma unroll
-        for (int i = 0; i < 3; ++i) s += gp[3 * v + i] * acc[j][i][v];
+        for (int i = 0; i < 3; ++i) s += gq[3 * v + i] * fv[i];
+        const float df[3] = {gq[3 * v] * wt, gq[3 * v + 1] * wt,
+                             gq[3 * v + 2] * wt};
+        vec_act_bwd(yv, k3, df, slope, gy, gk);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          dy[i][v] = gy[i];
+          dkd[i][v] = gk[i];
+          ub[i][v] += gy[i];
+          vb[i][v] += gk[i];
+        }
+      }
       sq[e * Oq + o / 4] = s;
+      float* gs = gsrc_b + (size_t)j * 3 * ld + O + o;
+      add12(gs, ld, dy);
+      add12(gs + 2 * O, ld, dkd);
     }
+    store12(gdst_n + O + o, ld, ub);
+    store12(gdst_n + 3 * O + o, ld, vb);
   }
   __syncthreads();
   const int hq = head_c / 4;
   for (int t = threadIdx.x; t < blk.e_act * H; t += kThreads) {
     const int e = t / H, h = t % H;
     float s = 0.0f;
-    for (int q = 0; q < hq; ++q) s += sq[e * Oq + h * hq + q];
+    for (int p = 0; p < hq; ++p) s += sq[e * Oq + h * hq + p];
     dl_s[e * H + h] = s;
   }
   __syncthreads();
-
-  // 2. K branch forward, as attention.cu
-  conv_rows<TX>(y_s, ldy, nn_s, ldn, C, wl_t, 2 * O, O, ydst_b, 2 * O, blk,
-                Bs);
-  for (int o0 = 0; o0 < O; o0 += T::OT) {
-    gemm<TX>(acc, y_s, ldy, O, dk_t, O, o0, O, Bs);
-    const int o = o0 + 4 * to;
-    if (o < O) {
-      activate<TX>(acc, y_s, ldy, o, slope);
-      key_scores<TX>(acc, qn_b, O, o, sq, c2q, blk);
-    }
-  }
-  attention_weights(sq, c2q, cross_s, w_s, sh_s, O, head_c, blk);
 
   // 3. the softmax's backward over each (point, head), then per edge the
   // cotangent of cross; dl_s ends as d_logit / sqrt(3 head_c) = d(q.k)
@@ -176,147 +283,184 @@ __global__ void __launch_bounds__(kThreads)
     dcross_s[e] = mc > 1e-12f ? -s / (mc * mc) : 0.0f;
   }
   __syncthreads();
+  if (!on) return;
 
-  // 4. K branch backward (y_s still holds the K rows)
-  float* dqn_b = d_qn + (size_t)blk.b * Nd * O * 3;
-  auto up_k = [&](const float (&kd)[kEPT][3][4], int o0,
-                  float (&df)[kEPT][3][4]) {
-    float qacc[kEPT][3][4];
+  // 4. K branch backward: the channel normalisation's VJP per channel gives
+  // d_kf and d_q_n, then the activation's VJP d_y and d_kd
+  float dq_acc[3][4];
 #pragma unroll
-    for (int j = 0; j < kEPT; ++j) {
-      const int e = te * kEPT + j;
+  for (int i = 0; i < 3; ++i)
 #pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int o = o0 + 4 * to + v;
+    for (int v = 0; v < 4; ++v) ub[i][v] = vb[i][v] = dq_acc[i][v] = 0.0f;
+  load_quad(q_nn, q);
+  load12(pdst_n + o, yd, ld);
+  load12(pdst_n + 2 * O + o, kdd, ld);
+  for (int k = 0; k < K; ++k) {
+    const int j = idx_n[k], e = pl * K + k;
+    edge_rows(psrc_b + (size_t)j * 3 * ld + o, 2 * O, ld, yd, kdd, y, kd);
+    const float mc = cross_s[e], dcr = dcross_s[e], dqk = dl_s[e * H + head];
 #pragma unroll
-        for (int i = 0; i < 3; ++i) df[j][i][v] = qacc[j][i][v] = 0.0f;
-        if (e >= blk.e_act || o >= O) continue;
-        const float yv[3] = {y_s[(e * 3) * ldy + o], y_s[(e * 3 + 1) * ldy + o],
-                             y_s[(e * 3 + 2) * ldy + o]};
-        const float k3[3] = {kd[j][0][v], kd[j][1][v], kd[j][2][v]};
-        float f[3];
-        vec_act(yv, k3, slope, f);
-        const float* qp = qn_b + ((size_t)(blk.n0 + e / K) * O + o) * 3;
-        const float knorm =
-            sqrtf(fmaxf(f[0] * f[0] + f[1] * f[1] + f[2] * f[2], 0.0f));
-        const float mk = fmaxf(knorm, 1e-12f), mc = cross_s[e];
-        const float a = knorm / mc, scale = a / mk;
-        const float dqk = dl_s[e * H + o / head_c];
-        const float dot = f[0] * qp[0] + f[1] * qp[1] + f[2] * qp[2];
-        const float d_scale = dqk * dot;
-        const float d_a = d_scale / mk;
-        const float d_mk = -d_scale * a / (mk * mk);
-        const float d_knorm = (knorm > 1e-12f ? d_mk : 0.0f) + d_a / mc +
-                              dcross_s[e] * knorm / mc;
-        const float coef = d_knorm / mk;
+    for (int v = 0; v < 4; ++v) {
+      const float yv[3] = {y[0][v], y[1][v], y[2][v]};
+      const float k3[3] = {kd[0][v], kd[1][v], kd[2][v]};
+      float fv[3];
+      vec_act(yv, k3, slope, fv);
+      const float* qv = q + 3 * v;
+      const float knorm =
+          sqrtf(fmaxf(fv[0] * fv[0] + fv[1] * fv[1] + fv[2] * fv[2], 0.0f));
+      const float mk = fmaxf(knorm, 1e-12f);
+      const float a = knorm / mc, scale = a / mk;
+      const float dot = fv[0] * qv[0] + fv[1] * qv[1] + fv[2] * qv[2];
+      const float d_scale = dqk * dot;
+      const float d_a = d_scale / mk;
+      const float d_mk = -d_scale * a / (mk * mk);
+      const float d_knorm =
+          (knorm > 1e-12f ? d_mk : 0.0f) + d_a / mc + dcr * knorm / mc;
+      const float coef = d_knorm / mk;
+      float df[3], gy[3], gk[3];
 #pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          df[j][i][v] = dqk * qp[i] * scale + coef * f[i];
-          qacc[j][i][v] = dqk * (f[i] * scale);
-        }
+      for (int i = 0; i < 3; ++i) {
+        df[i] = dqk * qv[i] * scale + coef * fv[i];
+        dq_acc[i][v] += dqk * (fv[i] * scale);
+      }
+      vec_act_bwd(yv, k3, df, slope, gy, gk);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        dy[i][v] = gy[i];
+        dkd[i][v] = gk[i];
+        ub[i][v] += gy[i];
+        vb[i][v] += gk[i];
       }
     }
-    weighted_sum_store<TX>(qacc, nullptr, 0, 1, sq, dqn_b, O, o0, 1.0f, blk);
-  };
-  float dy[NT][kEPT][3][4];
-  branch_bwd<TX, NT>(dy, y_s, ldy, O, dk_t, DK, dkt, ldt, Bs, dDK, blk, slope,
-                     up_k);
-  store_rows<TX, NT>(dy, y_s, ldy, O);
-  sum_over_k(y_s, ldy, O, dydst_b, 2 * O, blk);
-  wgrad(dWl, 2 * O, nn_s, ldn, C, y_s, ldy, O, 3 * blk.e_act);
-  scatter_sources<TX>(y_s, ldy, O, WK, 2 * C, C, dsrc_b, idx_s, blk, Bs);
-
-  // 5. V branch backward: the rows again, then d_vf = attn g
-  conv_rows<TX>(y_s, ldy, nn_s, ldn, C, wl_t + O, 2 * O, O, ydst_b + O, 2 * O,
-                blk, Bs);
-  auto up_v = [&](const float (&)[kEPT][3][4], int o0,
-                  float (&df)[kEPT][3][4]) {
-#pragma unroll
-    for (int j = 0; j < kEPT; ++j) {
-      const int e = te * kEPT + j;
-      const int n = blk.n0 + e / K;
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int o = o0 + 4 * to + v;
-        const bool live = e < blk.e_act && o < O;
-        const float wt = live ? w_s[e * H + o / head_c] : 0.0f;
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-          df[j][i][v] = live ? g_b[((size_t)n * O + o) * 3 + i] * wt : 0.0f;
-      }
-    }
-  };
-  branch_bwd<TX, NT>(dy, y_s, ldy, O, dv_t, DV, dkt, ldt, Bs, dDV, blk, slope,
-                     up_v);
-  store_rows<TX, NT>(dy, y_s, ldy, O);
-  sum_over_k(y_s, ldy, O, dydst_b + O, 2 * O, blk);
-  wgrad(dWl + O, 2 * O, nn_s, ldn, C, y_s, ldy, O, 3 * blk.e_act);
-  scatter_sources<TX>(y_s, ldy, O, WV, 2 * C, C, dsrc_b, idx_s, blk, Bs);
+    float* gs = gsrc_b + (size_t)j * 3 * ld + o;
+    add12(gs, ld, dy);
+    add12(gs + 2 * O, ld, dkd);
+  }
+  store12(gdst_n + o, ld, ub);
+  store12(gdst_n + 2 * O + o, ld, vb);
+  // d_q_n[n][o..o+3][0..2]: 12 floats in (channel, component) order
+  float4* dq4 = reinterpret_cast<float4*>(dqn + (pt * O + o) * 3);
+  dq4[0] = make_float4(dq_acc[0][0], dq_acc[1][0], dq_acc[2][0], dq_acc[0][1]);
+  dq4[1] = make_float4(dq_acc[1][1], dq_acc[2][1], dq_acc[0][2], dq_acc[1][2]);
+  dq4[2] = make_float4(dq_acc[2][2], dq_acc[0][3], dq_acc[1][3], dq_acc[2][3]);
 }
 
-template <int TX>
-int launch(const float* src, const float* ydst, const float* qn,
-           const int32_t* idx, const float* wl_t, const float* WK,
-           const float* WV, const float* dk_t, const float* dv_t,
-           const float* DK, const float* DV, const float* g, float* d_src,
-           float* d_ydst, float* d_qn, float* rep, float* out, int B, int Ns,
-           int Nd, int C, int O, int K, int head_c, float slope,
-           cudaStream_t stream) {
-  const Smem<TX> lay(C, O, O / head_c);
-  const int bytes = lay.total * (int)sizeof(float);
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int tn = Tile<TX>::EB / K;
-  const dim3 grid((Nd + tn - 1) / tn, B);
-  attention_bwd_kernel<TX><<<grid, kThreads, bytes, stream>>>(
-      src, ydst, qn, idx, wl_t, WK, WV, dk_t, dv_t, DK, DV, g, d_src, d_ydst,
-      d_qn, rep, Ns, Nd, C, O, K, head_c, slope);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return sum_replicas(rep, out, 2 * C * O + 2 * O * O, stream);
+// The number of partial sums of the reductions over `rows` rows: about one
+// for every 1024 rows, at most 256 (a fixed count for a shape).
+int reduction_splits(int rows) {
+  const int s = (rows + 1023) / 1024;
+  return s < 1 ? 1 : (s > 256 ? 256 : s);
 }
 
 }  // namespace
 
-// src (B, Ns, C, 3); ydst (B, Nd, 3, 2 O) and wl_t (C, 2 O) as attention.cu
-// takes them; W_K, W_V (O, 2 C); dk_t, dv_t = D_K^T, D_V^T and D_K, D_V
-// (O, O); qn, g (B, Nd, O, 3). d_src (B, Ns, C, 3) and rep (kReplicas, 2 C O +
-// 2 O O) zeroed by the caller; d_ydst (B, Nd, 3, 2 O); d_qn (B, Nd, O, 3);
-// out (2 C O + 2 O O) receives [d(W_l^T) (C, 2 O) | d_D_K | d_D_V]. f32,
-// contiguous. C, O, head_c multiples of 4, head_c divides O, O up to 512,
+// The edge pass. psrc (B, Ns, 3, 4 O), pdst (B, Nd, 3, 4 O) the per-point
+// rows of lstpu_attention_products, columns [Y_K | Y_V | Kd_K | Kd_V]; qn,
+// g (B, Nd, O, 3) the channel-normalised queries and the cotangent; idx
+// (B, Nd, K) int32 in [0, Ns). Adds U_j, V_j into gsrc (B, Ns, 3, 4 O),
+// zeroed by the caller, and writes Ub_n, Vb_n to gdst (B, Nd, 3, 4 O), both
+// with columns [U_K | U_V | V_K | V_V], and d_qn (B, Nd, O, 3). f32,
+// contiguous. O and head_c multiples of 4, head_c divides O, O <= 512,
 // 1 <= K <= 16.
-extern "C" int lstpu_edge_attention_bwd(
-    const void* src, const void* ydst, const void* qn, const void* idx,
-    const void* wl_t, const void* WK, const void* WV, const void* dk_t,
-    const void* dv_t, const void* DK, const void* DV, const void* g,
-    void* d_src, void* d_ydst, void* d_qn, void* rep, void* out, int B, int Ns,
-    int Nd, int C, int O, int K, int head_c, float slope, void* stream) {
-  if (B <= 0 || Ns <= 0 || Nd <= 0 || C <= 0 || O <= 0 || head_c <= 0 ||
-      C % 4 || O % 4 || head_c % 4 || O % head_c || O > kMaxTiles * 128 ||
-      K < 1 || K > kMaxK)
+extern "C" int lstpu_edge_attention_bwd(const void* psrc, const void* pdst,
+                                        const void* qn, const void* idx,
+                                        const void* g, void* gsrc, void* gdst,
+                                        void* dqn, int B, int Ns, int Nd,
+                                        int O, int K, int head_c, float slope,
+                                        void* stream) {
+  if (B <= 0 || Ns <= 0 || Nd <= 0 || O <= 0 || head_c <= 0 || O % 4 ||
+      head_c % 4 || O % head_c || O > kMaxO || K < 1 || K > kMaxK)
     return (int)cudaErrorInvalidValue;
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto m = [](void* p) { return static_cast<float*>(p); };
-  auto i = static_cast<const int32_t*>(idx);
+  const EdgeBwdSmem lay(O, K, head_c);
+  const int bytes = lay.total * (int)sizeof(float);
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_bwd_edges_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int P = kThreads / (O / 4);
+  const dim3 grid((Nd + P - 1) / P, B);
+  attention_bwd_edges_kernel<<<grid, kThreads, bytes,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(psrc), static_cast<const float*>(pdst),
+      static_cast<const float*>(qn), static_cast<const int32_t*>(idx),
+      static_cast<const float*>(g), static_cast<float*>(gsrc),
+      static_cast<float*>(gdst), static_cast<float*>(dqn), Ns, Nd, O, K,
+      head_c, slope);
+  return (int)cudaGetLastError();
+}
+
+// The linear rest of the backward. grows (B (Ns + Nd), 3, 4 O): the source
+// rows' U, V (the edge pass's gsrc), then the destination rows' Ub, Vb
+// (gdst), columns [U_K | U_V | V_K | V_V]; prows the same points' P_src,
+// P_dst rows (columns [Y_K | Y_V | Kd_K | Kd_V]); src3 (B, Ns, 3, C) and
+// dst3 (B, Nd, 3, C) the features, components first; W_l, W_delta (2 O, C)
+// = [W_Kl; W_Vl] and the W_r - W_l halves; D_K, D_V (O, O). Writes
+// Z = U + D^T V over U in grows, dsrc3 (B, Ns, 3, C) = Z_src W_l, ddst3
+// (B, Nd, 3, C) = Z_dst W_delta, and out (4 C O + 2 O O) = [d_W_l (2 O, C)
+// | d_D_K | d_D_V | d_W_delta (2 O, C)] through part, scratch of
+// lstpu_attention_bwd_splits(B, Ns, Nd) x (4 C O + 2 O O) floats. f32,
+// contiguous, C and O multiples of 4. Three launches on `stream`.
+extern "C" int lstpu_attention_bwd_products(
+    void* grows, const void* prows, const void* src3, const void* dst3,
+    const void* W_l, const void* W_delta, const void* D_K, const void* D_V,
+    void* dsrc3, void* ddst3, void* part, void* out, int B, int Ns, int Nd,
+    int C, int O, void* stream) {
+  using lstpu_points::GemmGroup;
+  using lstpu_points::row_major;
+  using lstpu_points::rows_at_b;
+  if (B <= 0 || Ns <= 0 || Nd <= 0 || C <= 0 || O <= 0 || C % 4 || O % 4)
+    return (int)cudaErrorInvalidValue;
+  auto G = static_cast<float*>(grows);
+  auto P = static_cast<const float*>(prows);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (pick_tx(O)) {
-    case 8:
-      return launch<8>(f(src), f(ydst), f(qn), i, f(wl_t), f(WK), f(WV),
-                       f(dk_t), f(dv_t), f(DK), f(DV), f(g), m(d_src),
-                       m(d_ydst), m(d_qn), m(rep), m(out), B, Ns, Nd, C, O, K,
-                       head_c, slope, st);
-    case 16:
-      return launch<16>(f(src), f(ydst), f(qn), i, f(wl_t), f(WK), f(WV),
-                        f(dk_t), f(dv_t), f(DK), f(DV), f(g), m(d_src),
-                        m(d_ydst), m(d_qn), m(rep), m(out), B, Ns, Nd, C, O, K,
-                        head_c, slope, st);
-    default:
-      return launch<32>(f(src), f(ydst), f(qn), i, f(wl_t), f(WK), f(WV),
-                        f(dk_t), f(dv_t), f(DK), f(DV), f(g), m(d_src),
-                        m(d_ydst), m(d_qn), m(rep), m(out), B, Ns, Nd, C, O, K,
-                        head_c, slope, st);
-  }
+  const int ld = 4 * O;
+  const int rows_src = 3 * B * Ns, rows_dst = 3 * B * Nd;
+  const int rows_all = rows_src + rows_dst;
+  const int S = reduction_splits(rows_all);
+  const size_t len = 4 * (size_t)C * O + 2 * (size_t)O * O;
+  float* pw = static_cast<float*>(part);  // d_W_l partials
+  float* pdk = pw + 2 * (size_t)C * O;    // d_D_K partials
+  float* pdv = pdk + (size_t)O * O;       // d_D_V partials
+  float* pwd = pdv + (size_t)O * O;       // d_W_delta partials
+  float* Gd = G + (size_t)rows_src * ld;  // the destination rows
+  // Z = U + V D per branch (D^T V as a row times D), in place of U; the
+  // reductions d_D = sum over all rows of V^T Y
+  GemmGroup first{};
+  first.g[0] = row_major(G + 2 * O, ld, rows_all,
+                         static_cast<const float*>(D_K), O, G, ld, O, O);
+  first.g[0].add = G;
+  first.g[1] = row_major(G + 3 * O, ld, rows_all,
+                         static_cast<const float*>(D_V), O, G + O, ld, O, O);
+  first.g[1].add = G + O;
+  first.g[2] = rows_at_b(G + 2 * O, ld, O, P, ld, O, rows_all, pdk, S, len);
+  first.g[3] = rows_at_b(G + 3 * O, ld, O, P + O, ld, O, rows_all, pdv, S,
+                         len);
+  first.count = 4;
+  int err = lstpu_points::run_group(first, st);
+  if (err) return err;
+  // d_src = Z_src W_l and d_dst = Z_dst W_delta per point; d_W_l and
+  // d_W_delta = the sums over the source and the destination rows of
+  // Z^T src and Z^T dst
+  GemmGroup second{};
+  second.g[0] = row_major(G, ld, rows_src, static_cast<const float*>(W_l), C,
+                          static_cast<float*>(dsrc3), C, C, 2 * O);
+  second.g[1] = rows_at_b(G, ld, 2 * O, static_cast<const float*>(src3), C, C,
+                          rows_src, pw, S, len);
+  second.g[2] = row_major(Gd, ld, rows_dst,
+                          static_cast<const float*>(W_delta), C,
+                          static_cast<float*>(ddst3), C, C, 2 * O);
+  second.g[3] = rows_at_b(Gd, ld, 2 * O, static_cast<const float*>(dst3), C, C,
+                          rows_dst, pwd, S, len);
+  second.count = 4;
+  err = lstpu_points::run_group(second, st);
+  if (err) return err;
+  return lstpu_points::fold_splits(static_cast<const float*>(part),
+                                   static_cast<float*>(out), (int)len, S, st);
+}
+
+// The count of partial sums that lstpu_attention_bwd_products needs
+// scratch for.
+extern "C" int lstpu_attention_bwd_splits(int B, int Ns, int Nd) {
+  return reduction_splits(3 * B * (Ns + Nd));
 }

@@ -1,5 +1,5 @@
-// Device code shared by the backward kernels of the fused edge layers:
-// layer0_bwd.cu, mean_edge_bwd.cu and attention_bwd.cu.
+// Device code shared by the backward kernels of the fused edge layers
+// layer0_bwd.cu and mean_edge_bwd.cu.
 //
 // Each recomputes its layer's per-edge pre-activation rows y (the forward's
 // code, edge_common.cuh) and pushes the cotangent back through the so3
@@ -39,35 +39,6 @@ template <int TX>
 struct BwdTiles {
   static constexpr int NT = TX == 32 ? kMaxTiles : 1;
 };
-
-// VJP of vec_act (edge_common.cuh) w.r.t. y and kd for one channel, as
-// livingscenes_tpu/nn/pallas_attention.py:73-105 computes it:
-// where(qpara >= 0, 0, slope - 1) for the activation, the direction's norm
-// masked to r > 1e-12.
-__device__ __forceinline__ void vec_act_bwd(const float (&y)[3],
-                                            const float (&kd)[3],
-                                            const float (&df)[3], float slope,
-                                            float (&dy)[3], float (&dkd)[3]) {
-  const float r = sqrtf(kd[0] * kd[0] + kd[1] * kd[1] + kd[2] * kd[2]);
-  const float inv = 1.0f / fmaxf(r, 1e-12f);
-  const float k[3] = {kd[0] * inv, kd[1] * inv, kd[2] * inv};
-  const float qpara = y[0] * k[0] + y[1] * k[1] + y[2] * k[2];
-  const float acted = qpara >= 0.0f ? qpara : slope * qpara;
-  const float delta = acted - qpara;
-  const float d_delta = df[0] * k[0] + df[1] * k[1] + df[2] * k[2];
-  const float d_q = qpara >= 0.0f ? 0.0f : d_delta * (slope - 1.0f);
-  float dk[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    dy[i] = df[i] + d_q * k[i];
-    dk[i] = df[i] * delta + d_q * y[i];
-  }
-  const float d_inv = dk[0] * kd[0] + dk[1] * kd[1] + dk[2] * kd[2];
-  const float d_r = r > 1e-12f ? -d_inv * inv * inv : 0.0f;
-  const float coef = d_r * inv;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) dkd[i] = dk[i] * inv + kd[i] * coef;
-}
 
 __device__ __forceinline__ float* replica(float* rep, size_t len) {
   const unsigned id = blockIdx.x + blockIdx.y * gridDim.x;

@@ -1,27 +1,24 @@
-// Device code shared by the fused edge layers: layer0.cu, the backward
-// kernels (mean_edge_bwd.cu and attention_bwd.cu through edge_bwd.cuh), and
-// the per-edge functions of attention.cu and mean_edge.cu (vec_act,
-// edge_features, quad_key_score, attention_weights), whose products are per
-// point instead.
+// Device code shared by the fused edge layers: the backward kernels of
+// layer 0 and the mean edge layer (layer0_bwd.cu, mean_edge_bwd.cu, through
+// edge_bwd.cuh), and the per-edge functions of the kernels whose products
+// are per point instead (layer0.cu, mean_edge.cu, attention.cu and
+// attention_bwd.cu: vec_act, vec_act_bwd, edge_features, quad_key_score,
+// attention_weights).
 //
-// They run, per destination point and its K <= 16 neighbours (edges),
+// The two backward kernels run, per destination point and its K <= 16
+// neighbours (edges),
 //
 //   y[e][o][i]   pre-activation rows, i = 0..2 the vector component
 //   kd = D y     the activation's direction (one O x O product per row)
 //   f = y - (y.k^) k^ + k^ leaky(y.k^),  k^ = kd / max(|kd|, 1e-12)
-//   a weighted sum of f over the K edges
 //
-// (attention.cu and mean_edge.cu add y and kd from per-point rows instead
-// of multiplying)
 // and never write an (edges, O, 3) tensor to device memory. A block of 256
 // threads owns EB edges (whole destination points). The pre-activation rows
 // of one branch stay in shared memory as a row-major (3 EB) x O matrix; the
 // weights stream through a small shared tile, fetched one chunk ahead into
 // registers. The products are plain f32 FMAs on the CUDA cores: thread
 // (to, te) accumulates 2 edges x 3 components x 4 outputs per output tile
-// of OT = 4 TX columns, so one edge's three components meet in one thread
-// and the activation needs no exchange. The forward kernels sum in a fixed
-// order (no atomics): their results are deterministic.
+// of OT = 4 TX columns, so one edge's three components meet in one thread.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,7 +38,6 @@ struct Tile {
   static constexpr int EB = TE * kEPT;         // edges per block
   static constexpr int LDB = OT + 4;           // weight tile row stride
   static constexpr int NLD = (kKC * TX + kThreads - 1) / kThreads;
-  static constexpr int RED = EB * OT * 3;      // floats of the K-sum buffer
   static constexpr int BS = kKC * LDB;         // floats of the weight tile
 };
 
@@ -304,6 +300,35 @@ __device__ __forceinline__ void vec_act(const float (&y)[3],
   out[2] = y[2] - qpara * k2 + k2 * acted;
 }
 
+// VJP of vec_act w.r.t. y and kd for one channel, as
+// livingscenes_tpu/nn/pallas_attention.py:73-105 computes it:
+// where(qpara >= 0, 0, slope - 1) for the activation, the direction's norm
+// masked to r > 1e-12.
+__device__ __forceinline__ void vec_act_bwd(const float (&y)[3],
+                                            const float (&kd)[3],
+                                            const float (&df)[3], float slope,
+                                            float (&dy)[3], float (&dkd)[3]) {
+  const float r = sqrtf(kd[0] * kd[0] + kd[1] * kd[1] + kd[2] * kd[2]);
+  const float inv = 1.0f / fmaxf(r, 1e-12f);
+  const float k[3] = {kd[0] * inv, kd[1] * inv, kd[2] * inv};
+  const float qpara = y[0] * k[0] + y[1] * k[1] + y[2] * k[2];
+  const float acted = qpara >= 0.0f ? qpara : slope * qpara;
+  const float delta = acted - qpara;
+  const float d_delta = df[0] * k[0] + df[1] * k[1] + df[2] * k[2];
+  const float d_q = qpara >= 0.0f ? 0.0f : d_delta * (slope - 1.0f);
+  float dk[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    dy[i] = df[i] + d_q * k[i];
+    dk[i] = df[i] * delta + d_q * y[i];
+  }
+  const float d_inv = dk[0] * kd[0] + dk[1] * kd[1] + dk[2] * kd[2];
+  const float d_r = r > 1e-12f ? -d_inv * inv * inv : 0.0f;
+  const float coef = d_r * inv;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) dkd[i] = dk[i] * inv + kd[i] * coef;
+}
+
 // 4 channels of 3 rows of stride ld: v[i][0..3] = row[i ld .. i ld + 3].
 __device__ __forceinline__ void load12(const float* __restrict__ row,
                                        float (&v)[3][4], int ld) {
@@ -341,78 +366,6 @@ __device__ __forceinline__ void edge_features(const float* __restrict__ ps,
   }
 }
 
-// Turn the direction products in acc into the activated features, in place.
-// The thread's columns are o..o+3 < O of its kEPT edges.
-template <int TX>
-__device__ __forceinline__ void activate(float (&acc)[kEPT][3][4],
-                                         const float* y_s, int ldy, int o,
-                                         float slope) {
-  const int te = threadIdx.x / TX;
-#pragma unroll
-  for (int j = 0; j < kEPT; ++j) {
-    const int e = te * kEPT + j;
-    float yv[3][4];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float4 t =
-          *reinterpret_cast<const float4*>(y_s + (e * 3 + i) * ldy + o);
-      yv[i][0] = t.x;
-      yv[i][1] = t.y;
-      yv[i][2] = t.z;
-      yv[i][3] = t.w;
-    }
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const float y[3] = {yv[0][v], yv[1][v], yv[2][v]};
-      const float kd[3] = {acc[j][0][v], acc[j][1][v], acc[j][2][v]};
-      float f[3];
-      vec_act(y, kd, slope, f);
-      acc[j][0][v] = f[0];
-      acc[j][1][v] = f[1];
-      acc[j][2][v] = f[2];
-    }
-  }
-}
-
-// out[n][o][i] = (sum_k w[e][head(o)] f[e][o][i]) / div for the tile's
-// columns, e = the k-th edge of n, summed in ascending k. w_s is (EB, H)
-// in shared memory, or null for weight 1. red is the (EB, 3 OT) buffer.
-// Every thread of the block calls this; it has two barriers.
-template <int TX>
-__device__ __forceinline__ void weighted_sum_store(
-    const float (&f)[kEPT][3][4], const float* w_s, int H, int head_c,
-    float* red, float* __restrict__ out_b, int O, int o0, float div,
-    const Block& blk) {
-  using T = Tile<TX>;
-  const int to = threadIdx.x % TX, te = threadIdx.x / TX;
-  const int o = o0 + 4 * to;
-#pragma unroll
-  for (int j = 0; j < kEPT; ++j) {
-    const int e = te * kEPT + j;
-    float w = 1.0f;
-    if (w_s != nullptr && o < O) w = w_s[e * H + o / head_c];
-    float4* dst = reinterpret_cast<float4*>(red + e * (3 * T::OT) + 12 * to);
-    // 12 floats in (column, component) order
-    dst[0] = make_float4(f[j][0][0] * w, f[j][1][0] * w, f[j][2][0] * w,
-                         f[j][0][1] * w);
-    dst[1] = make_float4(f[j][1][1] * w, f[j][2][1] * w, f[j][0][2] * w,
-                         f[j][1][2] * w);
-    dst[2] = make_float4(f[j][2][2] * w, f[j][0][3] * w, f[j][1][3] * w,
-                         f[j][2][3] * w);
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < blk.tn * 3 * T::OT; t += kThreads) {
-    const int nl = t / (3 * T::OT), q = t % (3 * T::OT);
-    const int n = blk.n0 + nl;
-    if (n >= blk.Nd || o0 + q / 3 >= O) continue;
-    float s = 0.0f;
-    for (int k = 0; k < blk.K; ++k)
-      s += red[(nl * blk.K + k) * (3 * T::OT) + q];
-    out_b[((size_t)n * O + o0) * 3 + q] = s / div;
-  }
-  __syncthreads();
-}
-
 // Attention: the partial sums of 4 channels of one edge's K features f
 // (component-major) against q, the 12 floats q_n[n][o..o+3][0..2]: into sq
 // kf.q_n times knorm / max(knorm, 1e-12) (which is 1 unless the channel
@@ -434,31 +387,8 @@ __device__ __forceinline__ void quad_key_score(const float (&f)[3][4],
   c2 = c;
 }
 
-// Attention: fold the K features of the thread's columns o..o+3 < O into the
-// partial sums sq and c2q of channel group o / 4 (quad_key_score).
-template <int TX>
-__device__ __forceinline__ void key_scores(const float (&f)[kEPT][3][4],
-                                           const float* __restrict__ qn_b,
-                                           int O, int o, float* sq,
-                                           float* c2q, const Block& blk) {
-  const int te = threadIdx.x / TX;
-  const int Oq = O / 4;
-#pragma unroll
-  for (int j = 0; j < kEPT; ++j) {
-    const int e = te * kEPT + j;
-    if (e >= blk.e_act) continue;
-    const int n = blk.n0 + e / blk.K;
-    // q_n[n][o..o+3][0..2]: 12 consecutive floats
-    const float4* qp =
-        reinterpret_cast<const float4*>(qn_b + ((size_t)n * O + o) * 3);
-    const float4 q0 = qp[0], q1 = qp[1], q2 = qp[2];
-    const float q[12] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y,
-                         q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
-    quad_key_score(f[j], q, sq[e * Oq + o / 4], c2q[e * Oq + o / 4]);
-  }
-}
-
-// Attention weights from the partial sums of key_scores: cross_s[e] =
+// Attention weights from the partial sums of quad_key_score (sq, c2q:
+// (edges, O / 4) in shared memory): cross_s[e] =
 // max(|k|, 1e-12) over all channels of edge e, the logit of head h
 // (sum of its sq) / cross / sqrt(3 head_c), and the softmax over the K edges
 // of each (point, head) into w_s (EB, H). With sh_s, the head sums of sq go
@@ -504,8 +434,8 @@ __device__ __forceinline__ void attention_weights(const float* sq,
   __syncthreads();
 }
 
-// Launch configuration of the kernels that tile their outputs (layer0.cu
-// and the backward kernels): TX by the output width.
+// Launch configuration of the kernels that tile their outputs (layer0_bwd.cu
+// and mean_edge_bwd.cu): TX by the output width.
 inline int pick_tx(int O) { return O <= 32 ? 8 : (O <= 64 ? 16 : 32); }
 
 }  // namespace lstpu_edge

@@ -4,111 +4,158 @@
 //
 // Replaces the TPU kernel livingscenes_tpu/nn/pallas_layer0.py::_layer0_kernel.
 // Source and destination are the same cloud; dst^ = dst / max(|dst|, 1e-12).
-// Every edge channel is linear in (nn, dst, dst^), so the pre-activation is
-//   y[o][i] = cross_i W[o][0] + (nn_i - dst_i) W[o][1] + dst_i W[o][2].
-// The TPU kernel's one-hot gather and mask-sum row and column picks are
-// indexed loads here.
+// Every edge channel is linear in (cross, nn - dst, dst), so the
+// pre-activation row and its direction are
+//   y[o][i]  = cross_i W[o][0]  + (nn_i - dst_i) W[o][1]  + dst_i W[o][2]
+//   Dy[o][i] = cross_i DW[o][0] + (nn_i - dst_i) DW[o][1] + dst_i DW[o][2]
+// with DW = D W (O x 3). The TPU kernel runs the O x O direction product
+// per edge (D (W e)); here each block forms D W once in shared memory
+// (3 O^2 FMAs, against 3 O^2 per edge before) and every edge channel costs
+// 12 FMAs for y and D y: the association becomes (D W) e.
 //
-// What bounds it on the H100: operations, 3 (2 O O + 6 O) flops per edge
-// (the direction product) against 12 bytes gathered per edge and 12 O bytes
-// written per point. The design is the shared one of edge_common.cuh: a
-// block builds the pre-activation rows of its 64 edges in shared memory
-// from nine scalars per edge, runs the direction product against D^T, and
-// writes only the (B, N, O, 3) mean.
+// What bounds it on the H100: operations, per edge the unit dst, the
+// cross product and nn - dst, and per edge and channel y and D y from
+// [W | D W], the activation and the sum over K (chip_smoke.py edge_work:
+// L0_EDGE_FLOPS, L0_EDGE_CHANNEL_FLOPS), against 12 bytes gathered per edge
+// and 12 O bytes written per point.
+//
+// Design: a block of 256 threads owns P = 256 / (O / 2) destination points
+// of one cloud; thread (point, pair) owns 2 channels of one point (at
+// O = 32: 16 points a block, 64 registers, four blocks an SM). The block
+// first copies its cloud's points (when they fit in 48 KB) and its edges'
+// indices into shared memory and forms D W there, then each thread keeps
+// its channels' W and D W columns, the destination's terms dst_i W[o][2]
+// and dst_i DW[o][2], and the running sum in registers, walks the point's
+// K edges in ascending k (the neighbour's 12 bytes from shared memory), and
+// writes its 6 floats of the (B, N, O, 3) mean once. The activation's
+// square root and reciprocal per edge and channel set the time: the
+// kernel runs about 50 instructions an edge and channel, as the mean-edge
+// layer's edge pass does for its activation alone. The tie rules are the
+// TPU kernel's: the clamp of |dst|, qpara >= 0 takes the positive branch
+// (edge_common.cuh vec_act), the mean in ascending k.
 #include "edge_common.cuh"
 
 namespace {
 
 using namespace lstpu_edge;
 
-template <int TX>
-struct Smem {
-  int idx, edge, bs, red, y, total;  // float offsets
-  __host__ __device__ explicit Smem(int O) {
-    using T = Tile<TX>;
-    idx = 0;
-    edge = idx + T::EB;  // (EB, 12): cross, nn - dst, dst, padding
-    bs = edge + T::EB * 12;
-    red = bs + T::BS;
-    y = red + T::RED;
-    total = y + T::EB * 3 * row_stride(O);
-  }
-};
+constexpr int kCh = 2;                   // channels a thread
+constexpr int kStageBytes = 48 * 1024;   // the cloud in shared memory up to
 
-template <int TX>
-__global__ void __launch_bounds__(kThreads)
+// kStage: the cloud's points in shared memory, else read from L1/L2.
+template <bool kStage>
+__global__ void __launch_bounds__(kThreads, 4)
     layer0_kernel(const float* __restrict__ xyz,
                   const int32_t* __restrict__ idx, const float* __restrict__ W,
-                  const float* __restrict__ d_t, float* __restrict__ out, int N,
+                  const float* __restrict__ D, float* __restrict__ out, int N,
                   int O, int K, float slope) {
   extern __shared__ __align__(16) float smem[];
-  using T = Tile<TX>;
-  const Smem<TX> lay(O);
-  int* idx_s = reinterpret_cast<int*>(smem + lay.idx);
-  float* edge_s = smem + lay.edge;
-  float* Bs = smem + lay.bs;
-  float* red = smem + lay.red;
-  float* y_s = smem + lay.y;
-  const int ldy = row_stride(O);
-  const Block blk = make_block<TX>(N, K);
-  const float* xyz_b = xyz + (size_t)blk.b * N * 3;
-
-  load_idx<TX>(idx_s, idx, blk);
-  zero_pad(y_s, T::EB * 3, ldy, O);
-  __syncthreads();
-  layer0_rows<TX>(y_s, ldy, edge_s, xyz_b, W, O, idx_s, blk);
-
-  float* out_b = out + (size_t)blk.b * N * O * 3;
-  const int to = threadIdx.x % TX;
-  float acc[kEPT][3][4];
-  for (int o0 = 0; o0 < O; o0 += T::OT) {
-    gemm<TX>(acc, y_s, ldy, O, d_t, O, o0, O, Bs);
-    if (o0 + 4 * to < O) activate<TX>(acc, y_s, ldy, o0 + 4 * to, slope);
-    weighted_sum_store<TX>(acc, nullptr, 0, 1, red, out_b, O, o0, (float)K,
-                           blk);
+  const int Oq = O / kCh, P = kThreads / Oq;
+  float* w_s = smem;           // (O, 3) W
+  float* dw_s = smem + 3 * O;  // (O, 3) D W
+  int* idx_s = reinterpret_cast<int*>(smem + 6 * O);  // (P, K)
+  float* x_s = smem + 6 * O + P * K;                  // kStage: (N, 3)
+  const int b = blockIdx.y, n0 = blockIdx.x * P;
+  const float* xyz_b = xyz + (size_t)b * N * 3;
+  const int e_act = min(P, N - n0) * K;
+  const int32_t* idx_b = idx + ((size_t)b * N + n0) * K;
+  for (int t = threadIdx.x; t < 3 * O; t += kThreads) w_s[t] = W[t];
+  for (int t = threadIdx.x; t < e_act; t += kThreads) idx_s[t] = idx_b[t];
+  if (kStage)
+    for (int t = threadIdx.x; t < 3 * N; t += kThreads) x_s[t] = xyz_b[t];
+  for (int t = threadIdx.x; t < 3 * O; t += kThreads) {
+    const int o = t / 3, c = t % 3;
+    const float* d_row = D + (size_t)o * O;
+    float s = 0.0f;
+#pragma unroll 8
+    for (int p = 0; p < O; ++p) s = fmaf(d_row[p], W[p * 3 + c], s);
+    dw_s[t] = s;
   }
-}
+  __syncthreads();
 
-template <int TX>
-int launch(const float* xyz, const int32_t* idx, const float* W,
-           const float* d_t, float* out, int B, int N, int O, int K,
-           float slope, cudaStream_t stream) {
-  const Smem<TX> lay(O);
-  const int bytes = lay.total * (int)sizeof(float);
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      layer0_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int tn = Tile<TX>::EB / K;
-  const dim3 grid((N + tn - 1) / tn, B);
-  layer0_kernel<TX><<<grid, kThreads, bytes, stream>>>(xyz, idx, W, d_t, out,
-                                                       N, O, K, slope);
-  return (int)cudaGetLastError();
+  const int pl = threadIdx.x / Oq, o = kCh * (threadIdx.x % Oq);
+  const int n = n0 + pl;
+  if (pl >= P || n >= N) return;
+  const float* pts = kStage ? x_s : xyz_b;
+  const int* idx_n = idx_s + pl * K;
+  const float d0 = pts[n * 3], d1 = pts[n * 3 + 1], d2 = pts[n * 3 + 2];
+  const float dn = fmaxf(sqrtf(d0 * d0 + d1 * d1 + d2 * d2), 1e-12f);
+  const float h0 = d0 / dn, h1 = d1 / dn, h2 = d2 / dn;
+  const float dst[3] = {d0, d1, d2};
+  // the thread's channels: W and D W columns, the destination's terms
+  float wc[kCh], wl[kCh], dwc[kCh], dwl[kCh], yd[3][kCh], kdd[3][kCh];
+#pragma unroll
+  for (int v = 0; v < kCh; ++v) {
+    const float* w = w_s + (o + v) * 3;
+    const float* dw = dw_s + (o + v) * 3;
+    wc[v] = w[0];
+    wl[v] = w[1];
+    dwc[v] = dw[0];
+    dwl[v] = dw[1];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      yd[i][v] = dst[i] * w[2];
+      kdd[i][v] = dst[i] * dw[2];
+    }
+  }
+  float acc[3][kCh] = {};
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float* p = pts + idx_n[k] * 3;
+    const float n0_ = p[0], n1 = p[1], n2 = p[2];
+    const float cr[3] = {h1 * n2 - h2 * n1, h2 * n0_ - h0 * n2,
+                         h0 * n1 - h1 * n0_};
+    const float nd[3] = {n0_ - d0, n1 - d1, n2 - d2};
+#pragma unroll
+    for (int v = 0; v < kCh; ++v) {
+      float y[3], kd[3], f[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        y[i] = fmaf(cr[i], wc[v], fmaf(nd[i], wl[v], yd[i][v]));
+        kd[i] = fmaf(cr[i], dwc[v], fmaf(nd[i], dwl[v], kdd[i][v]));
+      }
+      vec_act(y, kd, slope, f);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) acc[i][v] += f[i];
+    }
+  }
+  const float div = (float)K;
+  // out[n][o..o+1][0..2]: 6 floats in (channel, component) order
+  float2* dst2 =
+      reinterpret_cast<float2*>(out + (((size_t)b * N + n) * O + o) * 3);
+  dst2[0] = make_float2(acc[0][0] / div, acc[1][0] / div);
+  dst2[1] = make_float2(acc[2][0] / div, acc[0][1] / div);
+  dst2[2] = make_float2(acc[1][1] / div, acc[2][1] / div);
 }
 
 }  // namespace
 
 // xyz (B, N, 3), idx (B, N, K) int32 in [0, N), W (O, 3) over [cross,
-// nn - dst, dst], d_t (O, O) = D^T, out (B, N, O, 3); f32, contiguous.
-// O a multiple of 4, 1 <= K <= 16.
+// nn - dst, dst], D (O, O), out (B, N, O, 3); f32, contiguous.
+// O even up to 512, 1 <= K <= 16. One launch.
 extern "C" int lstpu_layer0_edge_mean(const void* xyz, const void* idx,
-                                      const void* W, const void* d_t,
-                                      void* out, int B, int N, int O, int K,
-                                      float slope, void* stream) {
-  if (B <= 0 || N <= 0 || O <= 0 || O % 4 || K < 1 || K > kMaxK)
+                                      const void* W, const void* D, void* out,
+                                      int B, int N, int O, int K, float slope,
+                                      void* stream) {
+  if (B <= 0 || N <= 0 || O <= 0 || O % kCh || O / kCh > kThreads || K < 1 ||
+      K > kMaxK)
     return (int)cudaErrorInvalidValue;
+  const int P = kThreads / (O / kCh);
+  const int base = (6 * O + P * K) * (int)sizeof(float);  // W, D W, indices
+  const bool stage = base + 3 * N * (int)sizeof(float) <= kStageBytes;
+  const int bytes = base + (stage ? 3 * N * (int)sizeof(float) : 0);
+  const dim3 grid((N + P - 1) / P, B);
+  auto st = static_cast<cudaStream_t>(stream);
   auto x = static_cast<const float*>(xyz);
   auto i = static_cast<const int32_t*>(idx);
   auto w = static_cast<const float*>(W);
-  auto d = static_cast<const float*>(d_t);
+  auto d = static_cast<const float*>(D);
   auto o = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (pick_tx(O)) {
-    case 8:
-      return launch<8>(x, i, w, d, o, B, N, O, K, slope, st);
-    case 16:
-      return launch<16>(x, i, w, d, o, B, N, O, K, slope, st);
-    default:
-      return launch<32>(x, i, w, d, o, B, N, O, K, slope, st);
-  }
+  if (stage)
+    layer0_kernel<true><<<grid, kThreads, bytes, st>>>(x, i, w, d, o, N, O, K,
+                                                       slope);
+  else
+    layer0_kernel<false><<<grid, kThreads, bytes, st>>>(x, i, w, d, o, N, O, K,
+                                                        slope);
+  return (int)cudaGetLastError();
 }

@@ -15,9 +15,14 @@ included, in a first stage of their own (`mean_point_products_cuda`,
 sums and the non-linear work. Under
 autograd each is a `torch.autograd.Function` that saves only its inputs and
 whose backward recomputes the edges, as the TPU kernels' do: the plain VJP
-on the CPU, the backward kernel on the card, whose per-point results (the
-gradient of ydst) are turned into d_dst and the W_r - W_l half of d_W here,
-as JAX's `_mean_bwd_impl` and `_attn_bwd_impl` do outside the kernel.
+on the CPU, the backward kernel on the card. The mean edge layer's kernel
+leaves per point the gradient of ydst, which is turned into d_dst and the
+W_r - W_l half of d_W here, as JAX's `_mean_bwd_impl` does outside its
+kernel. The attention backward, like its forward, runs its products once
+per point: its edge pass leaves per point the summed cotangents of the
+rows, and the products by D, W_l and W_r - W_l and the weight gradients
+follow as per-point products and reductions over the points
+(csrc/attention_bwd.cu).
 """
 from __future__ import annotations
 
@@ -35,7 +40,9 @@ mean_products_launches = 0  # its per-point products' launches (two a call)
 attention_launches = 0  # attention.cu edge-pass launches since last set to 0
 products_launches = 0  # its per-point products' launches (two a call), ditto
 mean_bwd_launches = 0  # mean_edge_bwd.cu launches since last set to 0
-attention_bwd_launches = 0  # attention_bwd.cu launches since last set to 0
+attention_bwd_launches = 0  # attention_bwd.cu edge-pass launches, ditto
+# its per-point products and reductions (five a call), ditto
+attention_bwd_products_launches = 0
 
 
 def fused_edge_mean_plain(src_f, dst_f, idx, W, D, neg_slope: float = 0.2):
@@ -167,6 +174,26 @@ def attention_point_products_plain(src_f, dst_f, W_l, W_delta, D_K, D_V):
     return rows(W_l, src_f), rows(W_delta, dst_f)
 
 
+def _launch_attention_products(src_f, dst_f, W_l, W_delta, D_K, D_V, p_src,
+                               p_dst):
+    """lstpu_attention_products (two launches) into p_src, p_dst."""
+    B, Ns, C, _ = src_f.shape
+    Nd, O = dst_f.shape[1], D_K.shape[0]
+    dev = src_f.device
+    # [W^T | (D W)^T]: the kernel writes the second half
+    w_src = torch.empty((C, 4 * O), dtype=torch.float32, device=dev)
+    w_dst = torch.empty_like(w_src)
+    w_src[:, :2 * O] = W_l.t()
+    w_dst[:, :2 * O] = W_delta.t()
+    dk_t, dv_t = D_K.t().contiguous(), D_V.t().contiguous()
+    err = _cuda.lib().lstpu_attention_products(
+        src_f.data_ptr(), dst_f.data_ptr(), w_src.data_ptr(),
+        w_dst.data_ptr(), dk_t.data_ptr(), dv_t.data_ptr(), p_src.data_ptr(),
+        p_dst.data_ptr(), B, Ns, Nd, C, O, _cuda.stream_ptr(src_f),
+    )
+    _cuda.check(err, "attention_products")
+
+
 def attention_point_products_cuda(src_f, dst_f, W_l, W_delta, D_K, D_V):
     """The per-point products (the first stage of the attention kernel) for
     float32 tensors on the card: src_f (B, Ns, C, 3), dst_f (B, Nd, C, 3),
@@ -185,20 +212,10 @@ def attention_point_products_cuda(src_f, dst_f, W_l, W_delta, D_K, D_V):
         raise ValueError(f"{name}: src (B, Ns, C, 3), dst (B, Nd, C, 3), "
                          "W_l, W_delta (2O, C), D_K, D_V (O, O)")
     dev = src_f.device
-    # [W^T | (D W)^T]: the kernel writes the second half
-    w_src = torch.empty((C, 4 * O), dtype=torch.float32, device=dev)
-    w_dst = torch.empty_like(w_src)
-    w_src[:, :2 * O] = W_l.t()
-    w_dst[:, :2 * O] = W_delta.t()
-    dk_t, dv_t = D_K.t().contiguous(), D_V.t().contiguous()
     p_src = torch.empty((B, Ns, 3, 4 * O), dtype=torch.float32, device=dev)
     p_dst = torch.empty((B, Nd, 3, 4 * O), dtype=torch.float32, device=dev)
-    err = _cuda.lib().lstpu_attention_products(
-        src_f.data_ptr(), dst_f.data_ptr(), w_src.data_ptr(),
-        w_dst.data_ptr(), dk_t.data_ptr(), dv_t.data_ptr(), p_src.data_ptr(),
-        p_dst.data_ptr(), B, Ns, Nd, C, O, _cuda.stream_ptr(src_f),
-    )
-    _cuda.check(err, name)
+    _launch_attention_products(src_f, dst_f, W_l, W_delta, D_K, D_V, p_src,
+                               p_dst)
     products_launches += 2
     return p_src, p_dst
 
@@ -312,8 +329,13 @@ def fused_edge_attention_bwd_cuda(src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V,
                                   g, head_c: int = 16, neg_slope: float = 0.2):
     """The backward kernel, and per point the rest of JAX's `_attn_bwd_impl`:
     (d_src, d_dst, d_q_n, d_W_K, d_D_K, d_W_V, d_D_V) for float32 tensors on
-    the card. O up to 512."""
-    global attention_bwd_launches
+    the card. O up to 512. Six launches (csrc/attention_bwd.cu): the
+    forward's per-point rows again (two), the edge pass
+    (`attention_bwd_launches`), which sums the cotangents of each point's
+    rows, then the products by D, W_l and W_r - W_l and the weight
+    gradients' split reductions (three); the five beside the edge pass
+    count in `attention_bwd_products_launches`."""
+    global attention_bwd_launches, attention_bwd_products_launches
     name = "edge_attention_bwd"
     _cuda.require_cuda(name, src_f, dst_f, q_n, W_K, D_K, W_V, D_V, g,
                        dtype=torch.float32)
@@ -327,35 +349,52 @@ def fused_edge_attention_bwd_cuda(src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V,
                          "q_n, g (B, Nd, O, 3)")
     W_l = torch.cat([W_K[:, :C], W_V[:, :C]], dim=0)  # (2O, C)
     W_delta = torch.cat([W_K[:, C:], W_V[:, C:]], dim=0) - W_l
-    y_dst = torch.einsum("oc,bnci->bnio", W_delta, dst_f).contiguous()
-    wl_t = W_l.t().contiguous()
-    dk_t, dv_t = D_K.t().contiguous(), D_V.t().contiguous()
     idx = idx.to(torch.int32)
     dev = src_f.device
-    d_src = torch.zeros_like(src_f)
-    d_ydst = torch.empty((B, Nd, 3, 2 * O), dtype=torch.float32, device=dev)
-    d_qn = torch.empty((B, Nd, O, 3), dtype=torch.float32, device=dev)
     lib = _cuda.lib()
-    size = 2 * C * O + 2 * O * O
-    rep = torch.zeros((lib.lstpu_wgrad_replicas(), size), dtype=torch.float32,
-                      device=dev)
-    out = torch.empty(size, dtype=torch.float32, device=dev)
+    stream = _cuda.stream_ptr(src_f)
+    n_src = B * Ns
+    # the rows of the source points, then of the destination points: the
+    # products' [Y_K | Y_V | Kd_K | Kd_V], and their cotangents
+    rows = torch.empty((B * (Ns + Nd), 3, 4 * O), dtype=torch.float32,
+                       device=dev)
+    _launch_attention_products(src_f, dst_f, W_l, W_delta, D_K, D_V,
+                               rows[:n_src], rows[n_src:])
+    attention_bwd_products_launches += 2
+    grows = torch.empty_like(rows)
+    grows[:n_src].zero_()  # the sources' rows take atomic sums
+    d_qn = torch.empty((B, Nd, O, 3), dtype=torch.float32, device=dev)
     err = lib.lstpu_edge_attention_bwd(
-        src_f.data_ptr(), y_dst.data_ptr(), q_n.data_ptr(), idx.data_ptr(),
-        wl_t.data_ptr(), W_K.data_ptr(), W_V.data_ptr(), dk_t.data_ptr(),
-        dv_t.data_ptr(), D_K.data_ptr(), D_V.data_ptr(), g.data_ptr(),
-        d_src.data_ptr(), d_ydst.data_ptr(), d_qn.data_ptr(), rep.data_ptr(),
-        out.data_ptr(), B, Ns, Nd, C, O, K, head_c, float(neg_slope),
-        _cuda.stream_ptr(src_f),
+        rows.data_ptr(), rows[n_src:].data_ptr(), q_n.data_ptr(),
+        idx.data_ptr(), g.data_ptr(), grows.data_ptr(),
+        grows[n_src:].data_ptr(), d_qn.data_ptr(), B, Ns, Nd, O, K, head_c,
+        float(neg_slope), stream,
     )
     _cuda.check(err, name)
     attention_bwd_launches += 1
-    d_wl_t = out[:2 * C * O].view(C, 2 * O)
-    d_DK = out[2 * C * O:2 * C * O + O * O].view(O, O)
-    d_DV = out[2 * C * O + O * O:].view(O, O)
-    d_dst = torch.einsum("oc,bnio->bnci", W_delta, d_ydst)
-    d_W_delta = torch.einsum("bnio,bnci->oc", d_ydst, dst_f)  # (2O, C)
-    d_W_l = d_wl_t.t()
+    size = 4 * C * O + 2 * O * O
+    part = torch.empty((lib.lstpu_attention_bwd_splits(B, Ns, Nd), size),
+                       dtype=torch.float32, device=dev)
+    out = torch.empty(size, dtype=torch.float32, device=dev)
+    # the features and their gradients with rows (point, component)
+    src3 = src_f.transpose(2, 3).contiguous()
+    dst3 = dst_f.transpose(2, 3).contiguous()
+    d_src3 = torch.empty_like(src3)
+    d_dst3 = torch.empty_like(dst3)
+    err = lib.lstpu_attention_bwd_products(
+        grows.data_ptr(), rows.data_ptr(), src3.data_ptr(), dst3.data_ptr(),
+        W_l.data_ptr(), W_delta.data_ptr(), D_K.data_ptr(), D_V.data_ptr(),
+        d_src3.data_ptr(), d_dst3.data_ptr(), part.data_ptr(), out.data_ptr(),
+        B, Ns, Nd, C, O, stream,
+    )
+    _cuda.check(err, name)
+    attention_bwd_products_launches += 3
+    d_src = d_src3.transpose(2, 3).contiguous()
+    d_dst = d_dst3.transpose(2, 3).contiguous()
+    d_W_l, d_DK, d_DV, d_W_delta = torch.split(
+        out, [2 * C * O, O * O, O * O, 2 * C * O])
+    d_W_l, d_W_delta = d_W_l.view(2 * O, C), d_W_delta.view(2 * O, C)
+    d_DK, d_DV = d_DK.view(O, O), d_DV.view(O, O)
     d_WK = torch.cat([d_W_l[:O] - d_W_delta[:O], d_W_delta[:O]], dim=1)
     d_WV = torch.cat([d_W_l[O:] - d_W_delta[O:], d_W_delta[O:]], dim=1)
     return d_src, d_dst, d_qn, d_WK, d_DK, d_WV, d_DV

@@ -45,7 +45,8 @@ def fused_layer0_edge_mean_plain(xyz, idx, W, D, neg_slope: float = 0.2):
 
 
 def fused_layer0_edge_mean_cuda(xyz, idx, W, D, neg_slope: float = 0.2):
-    """The kernel: float32 tensors on the card, idx int32 or int64."""
+    """The kernel: float32 tensors on the card, idx int32 or int64; O even
+    up to 512. One launch, which forms D W itself."""
     global launches
     _cuda.require_cuda("layer0_edge_mean", xyz, W, D, dtype=torch.float32)
     _cuda.require_cuda("layer0_edge_mean", xyz, idx)
@@ -57,10 +58,9 @@ def fused_layer0_edge_mean_cuda(xyz, idx, W, D, neg_slope: float = 0.2):
         raise ValueError("layer0_edge_mean: xyz (B, N, 3), idx (B, N, K), "
                          "W (O, 3), D (O, O)")
     idx = idx.to(torch.int32)
-    d_t = D.t().contiguous()
     out = torch.empty((B, N, O, 3), dtype=torch.float32, device=xyz.device)
     err = _cuda.lib().lstpu_layer0_edge_mean(
-        xyz.data_ptr(), idx.data_ptr(), W.data_ptr(), d_t.data_ptr(),
+        xyz.data_ptr(), idx.data_ptr(), W.data_ptr(), D.data_ptr(),
         out.data_ptr(), B, N, O, K, float(neg_slope), _cuda.stream_ptr(xyz),
     )
     _cuda.check(err, "layer0_edge_mean")

@@ -57,7 +57,9 @@ _SIGNATURES = {
     "lstpu_sinkhorn_bwd": [_P] * 10 + [_F] + [_I] * 3 + [_P],
     "lstpu_layer0_edge_mean_bwd": [_P] * 9 + [_I] * 4 + [_F, _P],
     "lstpu_edge_mean_bwd": [_P] * 12 + [_I] * 6 + [_F, _P],
-    "lstpu_edge_attention_bwd": [_P] * 17 + [_I] * 7 + [_F, _P],
+    "lstpu_edge_attention_bwd": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "lstpu_attention_bwd_products": [_P] * 12 + [_I] * 5 + [_P],
+    "lstpu_attention_bwd_splits": [_I] * 3,
     "lstpu_fps_tail_points": [_I, _I],
     "lstpu_knn_max_k": [],
     "lstpu_icp_stats_block": [],

@@ -24,6 +24,7 @@ Tolerances:
   * whole pipeline, f64, Kabsch ICP refit on both sides: matches0 equal,
     R and t to 1e-6.
 """
+import glob
 import math
 import os
 import re
@@ -451,6 +452,7 @@ def test_fused_front_end_condition(narrow_params):
 def test_port_sources_import_no_jax():
     pattern = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|livingscenes_tpu)\b(?!_)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
+    files += glob.glob(os.path.join(ROOT, "scripts", "torch_*.py"))
     for base, _, names in os.walk(PORT):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     assert len(files) >= 20

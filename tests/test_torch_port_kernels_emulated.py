@@ -24,10 +24,13 @@ sources, memory alignment, or speed; `python3 chip_smoke.py` on the card
 holds every kernel against its plain version at the main path's shapes
 and at small ragged ones.
 
-Tolerances: FPS and kNN indices equal (the inputs are exact in f32 where
-ties occur; random reals have no near-ties at these sizes), kNN distances
-equal on exact inputs and within rtol 1e-5 plus atol 1e-5 of the largest on
-random reals (another summation order than the plain matmul); ICP statistics rtol 1e-4; the fused edge layers rtol 2e-4 plus
+The FPS, kNN and kNN + scale kernels' cases and those of the backward
+kernels are in files of their own (tests/test_torch_port_kernels_emulated_
+fps.py, _knn.py, _knn_cap.py and _bwd.py), which take the stand-in and the
+`on_host` fixture from here, so that no one file sets the length of a run
+of the tests over several workers.
+
+Tolerances: ICP statistics rtol 1e-4; the fused edge layers rtol 2e-4 plus
 atol 2e-5 of the largest magnitude, as on the card, and their backward
 kernels against autograd of the plain versions the same (the kernels add
 the scatter and the weight gradients with atomics, in no fixed order); the scale statistic rtol
@@ -45,11 +48,8 @@ import torch
 
 from livingscenes_tpu_torch.nn import cuda_attention, cuda_layer0
 from livingscenes_tpu_torch.nn.vec_layers import channel_equi_vec_normalize
-from livingscenes_tpu_torch.ops import (
-    _cuda, cuda_fps, cuda_icp, cuda_knn, cuda_scale, cuda_sinkhorn)
+from livingscenes_tpu_torch.ops import _cuda, cuda_icp, cuda_scale, cuda_sinkhorn
 from livingscenes_tpu_torch.ops.sinkhorn import eps_annealing_schedule
-from livingscenes_tpu_torch.ops.fps import farthest_point_sampling
-from livingscenes_tpu_torch.ops.knn import knn
 
 CUDA_RUNTIME_STAND_IN = r'''// A stand-in for <cuda_runtime.h> that lets a host compiler build the port's
 // kernels (livingscenes_tpu_torch/csrc/*.cu) and run them on CPU threads.
@@ -58,7 +58,8 @@ CUDA_RUNTIME_STAND_IN = r'''// A stand-in for <cuda_runtime.h> that lets a host 
 // barriers: __syncthreads() is a barrier over the block, a warp shuffle a
 // pair of barriers over the warp's 32 threads, so every thread of a warp
 // must reach a shuffle, as on the card. atomicAdd on a float is a
-// compare-and-swap loop on a std::atomic_ref, on an unsigned a fetch_add;
+// compare-and-swap loop on a std::atomic_ref (on a float4 four of them),
+// on an unsigned a fetch_add;
 // atomicMax on an unsigned a compare-and-swap loop;
 // __threadfence a sequentially consistent fence (a counter in device memory
 // is then seen by the blocks that follow). Dynamic shared memory is filled
@@ -89,6 +90,10 @@ struct alignas(16) float4 {
 inline float4 make_float4(float x, float y, float z, float w) {
   return float4{x, y, z, w};
 }
+struct alignas(8) float2 {
+  float x, y;
+};
+inline float2 make_float2(float x, float y) { return float2{x, y}; }
 
 #define __global__
 #define __device__
@@ -119,6 +124,13 @@ inline float atomicAdd(float* address, float v) {
   while (!ref.compare_exchange_weak(old, old + v, std::memory_order_relaxed)) {
   }
   return old;
+}
+// sm_90's atomicAdd on a float4 in global memory (one vector
+// red.global.add.v4.f32): here four float atomics, each whole.
+inline float4 atomicAdd(float4* address, float4 v) {
+  float* p = reinterpret_cast<float*>(address);
+  return make_float4(atomicAdd(p, v.x), atomicAdd(p + 1, v.y),
+                     atomicAdd(p + 2, v.z), atomicAdd(p + 3, v.w));
 }
 inline unsigned atomicAdd(unsigned* address, unsigned v) {
   return std::atomic_ref<unsigned>(*address).fetch_add(v);
@@ -368,149 +380,6 @@ def test_rewrite_for_host():
     assert "<<<" not in out
 
 
-@pytest.mark.parametrize("N,k,masked", [(200, 50, False), (300, 64, True), (40, 60, True)])
-def test_fps_kernel(on_host, N, k, masked):
-    rng = np.random.default_rng(0)
-    pts = f32(rng, 3, N, 3)
-    mask = None
-    if masked:
-        mask = torch.as_tensor(rng.random((3, N)) > 0.3)
-        mask[1, N // 4:] = False
-    got = cuda_fps.fps_cuda(pts, k, mask)
-    want = farthest_point_sampling(pts, k, mask)[1]
-    assert torch.equal(got.long(), want)
-
-
-@pytest.mark.parametrize(
-    "B,N,k,warps",
-    [
-        (6, 100, 30, 1),    # the warp form: four clouds a block, then two
-        (3, 300, 64, 2),    # block forms
-        (2, 1000, 40, 4),
-        (2, 200, 30, 16),   # most of the block's threads without a point
-    ],
-)
-def test_fps_kernel_forms(on_host, B, N, k, warps):
-    rng = np.random.default_rng(16)
-    pts = f32(rng, B, N, 3)
-    mask = torch.as_tensor(rng.random((B, N)) > 0.3)
-    mask[1, k // 2:] = False  # fewer valid points than k
-    mask[0, 1:] = False       # a single valid point
-    for m in (None, mask):
-        got = cuda_fps.fps_cuda(pts, k, m, warps=warps)
-        want = farthest_point_sampling(pts, k, m)[1]
-        assert torch.equal(got.long(), want)
-
-
-@pytest.mark.parametrize("warps", [0, 1, 4])
-def test_fps_kernel_start(on_host, warps):
-    rng = np.random.default_rng(17)
-    pts = f32(rng, 5, 120, 3)
-    mask = torch.as_tensor(rng.random((5, 120)) > 0.2)
-    start = torch.as_tensor([0, 7, 119, 50, 3], dtype=torch.int32)
-    got = cuda_fps.fps_cuda(pts, 40, mask, start, warps=warps)
-    want = farthest_point_sampling(pts, 40, mask, start_idx=start)[1]
-    assert torch.equal(got.long(), want)
-    assert torch.equal(got[:, 0], start)
-
-
-def test_fps_front_end_stacked(on_host):
-    # the pipeline's front end: both sides of the scene pairs in one launch
-    rng = np.random.default_rng(18)
-    ref, res = f32(rng, 3, 400, 3), f32(rng, 3, 400, 3)
-    m_ref = torch.as_tensor(rng.random((3, 400)) > 0.4)
-    both = cuda_fps.fps_cuda(torch.cat([ref, res]), 64,
-                             torch.cat([m_ref, torch.ones_like(m_ref)]))
-    apart = [cuda_fps.fps_cuda(ref, 64, m_ref), cuda_fps.fps_cuda(res, 64)]
-    assert torch.equal(both, torch.cat(apart))
-    assert torch.equal(both[:3].long(), farthest_point_sampling(ref, 64, m_ref)[1])
-
-
-def test_fps_kernel_beyond_register_points(on_host):
-    # 8500 points: 8192 in registers, 308 re-read every round with their
-    # running minimum in scratch; the old kernel refused N > 8192
-    rng = np.random.default_rng(19)
-    pts = f32(rng, 2, 8500, 3)
-    pts[:, 8200:] *= 3.0  # far points past the registers: picked early
-    mask = torch.ones((2, 8500), dtype=torch.bool)
-    mask[1, 8300:] = False
-    assert cuda_fps._cuda.lib().lstpu_fps_tail_points(8500, 0) == 308
-    got = cuda_fps.fps_cuda(pts, 40, mask)
-    want = farthest_point_sampling(pts, 40, mask)[1]
-    assert torch.equal(got.long(), want)
-    assert int(want.max()) >= 8192
-
-
-@pytest.mark.parametrize("Nq,Np,D,k", [(70, 100, 3, 16), (33, 150, 48, 16), (20, 20, 96, 7)])
-def test_knn_kernel(on_host, Nq, Np, D, k):
-    rng = np.random.default_rng(1)
-    # small integers: every product and sum is exact, ties are real ties
-    p = torch.as_tensor(rng.integers(-3, 4, (2, Np, D)).astype(np.float32))
-    q = p[:, :Nq].contiguous()
-    dk, ik = cuda_knn.knn_cuda(q, p, k)
-    dp, ip = knn(q, p, k)
-    assert torch.equal(ik.long(), ip)
-    assert torch.equal(dk, dp)
-
-
-@pytest.mark.parametrize("form", [1, 2, 3])
-@pytest.mark.parametrize(
-    "Nq,Np,D,k",
-    [
-        (70, 300, 50, 16),  # a partial query tile, three source tiles, D % 16
-        (40, 12, 21, 10),   # fewer sources than 16, k < 16
-        (32, 128, 48, 16),  # the shape of layer 5
-        (20, 33, 200, 16),  # two 32-source tiles, 13 chunks over 8 groups
-        (128, 200, 24, 5),  # layer 4's query count, k < 16
-    ],
-)
-def test_knn_kernel_forms(on_host, form, Nq, Np, D, k):
-    rng = np.random.default_rng(15)
-    # small integers, exact: ties within and across the lanes and tiles
-    p = torch.as_tensor(rng.integers(-2, 3, (2, Np, D)).astype(np.float32))
-    q = torch.as_tensor(rng.integers(-2, 3, (2, Nq, D)).astype(np.float32))
-    dk, ik = cuda_knn.knn_cuda(q, p, k, form)
-    dp, ip = knn(q, p, k)
-    assert torch.equal(ik.long(), ip)
-    assert torch.equal(dk, dp)
-    # random reals: the filter against the query's 16th, no exact ties
-    pr, qr = f32(rng, 2, Np, D), f32(rng, 2, Nq, D)
-    dk, ik = cuda_knn.knn_cuda(qr, pr, k, form)
-    dp, ip = knn(qr, pr, k)
-    assert torch.equal(ik.long(), ip)
-    torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-5 * float(dp.max()))
-
-
-@pytest.mark.parametrize(
-    "N,k,tied",
-    [(100, 16, False), (256, 16, True),
-     (20, 5, False),      # fewer points than the 64 that seed the lists
-     (1100, 16, False)],  # three column chunks of 512, the last ragged
-)
-def test_knn_topk_kernel(on_host, N, k, tied):
-    rng = np.random.default_rng(2)
-    pc = f32(rng, 2, N, 3)
-    if tied:
-        pc[0] = lattice(rng, (8, 8, 4))
-    ik, sk = cuda_knn.knn_with_topk_scale_cuda(pc, k)
-    ip, sp = cuda_knn.knn_with_topk_scale_plain(pc, k)
-    assert ik.dtype == torch.int32 and torch.equal(ik.long(), ip)
-    torch.testing.assert_close(sk, sp, rtol=1e-6, atol=0)
-
-
-@pytest.mark.parametrize("tied", [False, True])
-def test_knn_topk_kernel_past_old_cap(on_host, tied):
-    # 4352 points, past the 4096 the kernel once refused: 8.5 column chunks;
-    # tied: a 17 x 16 x 16 lattice. The distances are the plain version's
-    # bits, so graph and scale are equal.
-    rng = np.random.default_rng(21)
-    pc = lattice(rng, (17, 16, 16))[None] if tied else f32(rng, 1, 4352, 3)
-    ik, sk = cuda_knn.knn_with_topk_scale_cuda(pc, 16)
-    ip, sp = cuda_knn.knn_with_topk_scale_plain(pc, 16)
-    assert torch.equal(ik.long(), ip)
-    assert torch.equal(sk, sp)
-
-
 @pytest.mark.parametrize(
     "n,m,tied",
     [
@@ -541,7 +410,8 @@ def test_icp_stats_kernel(on_host, n, m, tied):
     assert not bool(cuda_icp.pair_counters(x, 3).any())
 
 
-@pytest.mark.parametrize("N,K,O", [(40, 16, 32), (33, 8, 48), (18, 16, 132)])
+@pytest.mark.parametrize("N,K,O", [(40, 16, 32), (33, 8, 48), (18, 16, 132),
+                                   (4200, 5, 4)])  # the cloud past 48 KB
 def test_layer0_kernel(on_host, N, K, O):
     rng = np.random.default_rng(4)
     xyz = f32(rng, 2, N, 3)
@@ -549,6 +419,21 @@ def test_layer0_kernel(on_host, N, K, O):
     W, D = f32(rng, O, 3, scale=0.5), f32(rng, O, O, scale=0.2)
     assert_close(cuda_layer0.fused_layer0_edge_mean_cuda(xyz, idx, W, D),
                  cuda_layer0.fused_layer0_edge_mean_plain(xyz, idx, W, D))
+
+
+def test_layer0_kernel_origin(on_host):
+    # a destination at the origin (the clamp of |dst|: dst^ = 0) that is
+    # also every point's first neighbour; O = 8: 128 points a block
+    rng = np.random.default_rng(22)
+    xyz = f32(rng, 2, 150, 3)
+    xyz[1, 3] = 0.0
+    idx = torch.as_tensor(rng.integers(0, 150, (2, 150, 7)))
+    idx[1, :, 0] = 3
+    W, D = f32(rng, 8, 3, scale=0.5), f32(rng, 8, 8, scale=0.2)
+    before = cuda_layer0.launches
+    assert_close(cuda_layer0.fused_layer0_edge_mean_cuda(xyz, idx, W, D),
+                 cuda_layer0.fused_layer0_edge_mean_plain(xyz, idx, W, D))
+    assert cuda_layer0.launches - before == 1
 
 
 @pytest.mark.parametrize(
@@ -699,66 +584,7 @@ def test_sinkhorn_bwd_kernel(on_host, N, M, schedule, cots):
     torch.testing.assert_close(dy, wy, rtol=1e-4, atol=1e-6)
 
 
-def graph_with_repeats(rng, n_src, n_dst, K):
-    """A (2, n_dst, K) graph whose sources repeat within and across rows: a
-    few sources are every row's neighbours, so the scatter adds many edges
-    into one row."""
-    idx = rng.integers(0, n_src, (2, n_dst, K))
-    idx[:, :, 0] = 0
-    idx[:, ::2, 1] = n_src - 1
-    idx[:, 1::3, 2 % K] = 0  # row repeats the same source
-    return torch.as_tensor(idx)
-
-
 def assert_all_close(got, want):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert_close(g, w)
-
-
-@pytest.mark.parametrize("N,K,O", [(40, 16, 32), (33, 8, 48), (18, 16, 132)])
-def test_layer0_bwd_kernel(on_host, N, K, O):
-    rng = np.random.default_rng(10)
-    xyz = f32(rng, 2, N, 3)
-    xyz[1, 3] = 0.0  # a point at the origin: dst^'s clamp
-    idx = graph_with_repeats(rng, N, N, K)
-    W, D = f32(rng, O, 3, scale=0.5), f32(rng, O, O, scale=0.2)
-    g = f32(rng, 2, N, O, 3)
-    assert_all_close(
-        cuda_layer0.fused_layer0_edge_mean_bwd_cuda(xyz, idx, W, D, g),
-        cuda_layer0.fused_layer0_edge_mean_bwd_plain(xyz, idx, W, D, g))
-
-
-@pytest.mark.parametrize(
-    "Ns,Nd,C,O,K", [(50, 50, 32, 32, 16), (40, 21, 16, 48, 8), (30, 5, 36, 140, 7)])
-def test_mean_edge_bwd_kernel(on_host, Ns, Nd, C, O, K):
-    rng = np.random.default_rng(11)
-    src, dst = f32(rng, 2, Ns, C, 3), f32(rng, 2, Nd, C, 3)
-    idx = graph_with_repeats(rng, Ns, Nd, K)
-    W, D = f32(rng, O, 2 * C, scale=0.2), f32(rng, O, O, scale=0.2)
-    g = f32(rng, 2, Nd, O, 3)
-    args = (src, dst, idx, W, D, g)
-    assert_all_close(cuda_attention.fused_edge_mean_bwd_cuda(*args),
-                     cuda_attention.fused_edge_mean_bwd_plain(*args))
-
-
-@pytest.mark.parametrize(
-    "Ns,Nd,C,O,K,head_c",
-    [
-        (40, 20, 32, 64, 16, 16),   # the width of attention layers 2-3
-        (40, 7, 16, 32, 8, 16),     # ragged last block, K < 16
-        (24, 3, 20, 144, 5, 8),     # two output tiles, the second partial
-        (20, 3, 128, 256, 16, 16),  # the width of attention layer 5
-    ],
-)
-def test_attention_bwd_kernel(on_host, Ns, Nd, C, O, K, head_c):
-    rng = np.random.default_rng(12)
-    src, dst = f32(rng, 2, Ns, C, 3), f32(rng, 2, Nd, C, 3)
-    idx = graph_with_repeats(rng, Ns, Nd, K)
-    q_n = channel_equi_vec_normalize(f32(rng, 2, Nd, O, 3))
-    W_K, W_V = f32(rng, O, 2 * C, scale=0.2), f32(rng, O, 2 * C, scale=0.2)
-    D_K, D_V = f32(rng, O, O, scale=0.2), f32(rng, O, O, scale=0.2)
-    g = f32(rng, 2, Nd, O, 3)
-    args = (src, dst, idx, q_n, W_K, D_K, W_V, D_V, g, head_c)
-    assert_all_close(cuda_attention.fused_edge_attention_bwd_cuda(*args),
-                     cuda_attention.fused_edge_attention_bwd_plain(*args))
