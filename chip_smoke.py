@@ -50,7 +50,10 @@
    checkpoint: a warm-up call of 3 steps, whose first Sinkhorn inputs (the
    moved sources and their targets) the three Sinkhorn kernels are then
    held against their plain versions on (forward, iterates, and the
-   backward against autograd of the plain forward); one timed call at
+   backward against autograd of the plain forward, repeated bit for bit;
+   the forward runs each pair on a thread-block cluster, whose size is
+   logged), also past the N + M <= 8192 they once refused (2 x 6144 x 4096
+   and 1 x 12288 x 8192, the sides in tiles of 4096); one timed call at
    n_steps=400 with the launch counts checked (801 Sinkhorn forwards, 800
    backwards) and every plain version forbidden; stage times; scene 0 at
    n_steps=10 against the CPU (objects whose clouds' kNN graphs or FPS
@@ -1107,8 +1110,8 @@ def phase_small_shapes(torch, report):
     target tile (exact distances, many ties),
     N_dst != N_src, one head and many, the kNN + scale and scale kernels
     past the 4096 points they once refused (4352, 8192; 5000), Sinkhorn
-    clouds with N != M that fill no whole
-    warp, backward kernels on graphs with repeated sources and at the widest
+    clouds with N != M that fill no whole warp, on clusters of 1, 2, 4 and
+    8 blocks (67, 40, 20 and 2 pairs) that split them raggedly, backward kernels on graphs with repeated sources and at the widest
     O they take (512). Random inputs from a seed; checked, not timed."""
     from livingscenes_tpu_torch.nn import cuda_attention, cuda_layer0
     from livingscenes_tpu_torch.nn.vec_layers import channel_equi_vec_normalize
@@ -1286,11 +1289,22 @@ def phase_small_shapes(torch, report):
                     bwd_call(plain_fn, kind, args, g, torch.float64),
                     bwd_call(plain_fn, kind, args, g))
         done.append(name)
-    for n, m, schedule in ((50, 50, eps_annealing_schedule(0.05)),
-                           (70, 33, eps_annealing_schedule(0.1)),
-                           (20, 45, [0.01] * 5), (1500, 700, [0.02] * 3)):
-        x, y = f32(2, n, 3, scale=0.3), f32(2, m, 3, scale=0.3) + 0.1
-        name = f"sinkhorn small N={n} M={m} S={len(schedule)}"
+    # B pairs take clusters of the size the plan gives them on the H100's
+    # 132 SMs: 8 for up to 16 pairs, 4, 2 and 1 for 20, 40 and 67, each
+    # splitting its clouds raggedly
+    for B, n, m, schedule, cluster in (
+            (2, 50, 50, eps_annealing_schedule(0.05), 8),
+            (2, 70, 33, eps_annealing_schedule(0.1), 8),
+            (2, 20, 45, [0.01] * 5, 8), (2, 1500, 700, [0.02] * 3, 8),
+            (40, 77, 45, eps_annealing_schedule(0.05), 2),
+            (20, 150, 97, eps_annealing_schedule(0.05), 4),
+            (2, 25, 70, eps_annealing_schedule(0.05), 8),
+            (67, 60, 50, eps_annealing_schedule(0.05), 1)):
+        x, y = f32(B, n, 3, scale=0.3), f32(B, m, 3, scale=0.3) + 0.1
+        plan = cuda_sinkhorn.forward_plan(B, n, m)
+        name = f"sinkhorn small B={B} N={n} M={m} S={len(schedule)} CL={plan['cluster']}"
+        if plan["cluster"] != cluster:
+            raise AssertionError(f"{name}: expected clusters of {cluster}")
         with torch.no_grad():
             got = cuda_sinkhorn.extrapolated_forward_cuda(x, y, schedule)
             want = cuda_sinkhorn.ot_extrapolated_potentials_plain(x, y, schedule)
@@ -1300,7 +1314,7 @@ def phase_small_shapes(torch, report):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5,
                                        msg=lambda m, name=name: f"{name}: {m}")
         done.append(name)
-        for cf, cg in ((f32(2, n), f32(2, m)), (f32(2, n), None), (None, f32(2, m))):
+        for cf, cg in ((f32(B, n), f32(B, m)), (f32(B, n), None), (None, f32(B, m))):
             dx, dy = cuda_sinkhorn.extrapolated_backward_cuda(
                 x, y, *got[:4], cf, cg, schedule[-1])
             xv, yv = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
@@ -1952,12 +1966,23 @@ def phase_sinkhorn(torch, report, x, y, schedule):
     from the origin, so |x|^2/2 + |y|^2/2 - x.y is right to about 1e-6,
     which over eps = 0.0025 moves a softmax weight by 4e-4 of itself, in the
     saved potentials and again in the backward. The f32 plain version's own
-    error against the same f64 gradient is logged beside the kernel's."""
+    error against the same f64 gradient is logged beside the kernel's. The
+    backward must give the same bits on a second launch, and the cluster
+    size each shape takes is logged. Then, past the N + M <= 8192 the
+    kernels once refused, 2 pairs of 6144 x 4096 points (on clusters of 8,
+    in tiles of 4096 points) and 1 pair of 12288 x 8192 against the plain
+    versions: forward and iterates as above, the backward with both
+    cotangents and with f alone against the f64 plain gradient at the same
+    tolerance."""
     from livingscenes_tpu_torch.ops import cuda_sinkhorn as cs
 
     Bn, n, _ = x.shape
     m = y.shape[1]
     S = len(schedule)
+    plan = cs.forward_plan(Bn, n, m)
+    log(f"sinkhorn: {Bn} pairs of {n} x {m} take clusters of {plan['cluster']} "
+        f"blocks of {plan['threads']} threads, "
+        f"each side streamed in tiles of {plan['tile']} points")
     rng = np.random.default_rng(7)
 
     def close(name, got, want, rtol, atol):
@@ -1994,6 +2019,9 @@ def phase_sinkhorn(torch, report, x, y, schedule):
     for name, cf, cg in (("mean", mean_f, mean_g), ("random", rand_f, rand_g),
                          ("f only", mean_f, None), ("g only", None, rand_g)):
         dx, dy = cs.extrapolated_backward_cuda(x, y, *got, cf, cg, schedule[-1])
+        again = cs.extrapolated_backward_cuda(x, y, *got, cf, cg, schedule[-1])
+        if not (torch.equal(dx, again[0]) and torch.equal(dy, again[1])):
+            raise AssertionError(f"sinkhorn_bwd {name}: a second launch gave other bits")
         wx, wy = plain_grad(cf, cg, torch.float64)
         px, py = plain_grad(cf, cg)
         torch.cuda.synchronize()
@@ -2015,6 +2043,7 @@ def phase_sinkhorn(torch, report, x, y, schedule):
     err_bwd = max(err_bwd, close("sinkhorn_bwd self term", g_kernel.double(), g_plain,
                                  2e-3, 1e-3 * float(g_plain.abs().max())))
     del g_plain, f_pl
+    past_cap = sinkhorn_past_old_cap(torch, cs, schedule)
 
     with torch.no_grad():
         fwd_ms = cuda_ms(torch, lambda: cs.extrapolated_forward_cuda(x, y, schedule), 10)
@@ -2054,11 +2083,67 @@ def phase_sinkhorn(torch, report, x, y, schedule):
         "sinkhorn_iterates": {"ms": it_ms, "plain_ms": it_plain, "bound_ms": it_b},
     }
     report["sinkhorn_per_launch"] = per_launch
+    report["sinkhorn_plan"] = {"refinement": plan, **past_cap}
     report["sinkhorn_iterates"] = {
         "shape": [Bn, n, m, S], "launches": launches["sinkhorn_iterates"],
         **per_launch["sinkhorn_iterates"], "bound_by": it_by,
         "max_abs_err": err_it, "library_ms": None}
     return per_launch, {"sinkhorn": err_fwd, "sinkhorn_bwd": err_bwd}, (fwd_by, bwd_by)
+
+
+def sinkhorn_past_old_cap(torch, cs, schedule):
+    """Rows 9-11 past the N + M <= 8192 the kernels once refused: 2 pairs of
+    6144 x 4096 points and 1 of 12288 x 8192 (random boxes offset from the
+    origin as the refinement's are, the targets a jittered copy), forward
+    and iterates against the plain versions (rtol and atol 1e-5), the
+    backward (both cotangents, f alone) against autograd of the plain
+    forward in f64 (rtol 2e-3 plus 1e-3 of the largest entry, as
+    phase_sinkhorn holds it) and repeated bit for bit. Returns each shape's
+    launch plan."""
+    rng = np.random.default_rng(9)
+    plans = {}
+    for Bn, n, m in ((2, 6144, 4096), (1, 12288, 8192)):
+        box = rng.uniform(-0.5, 0.5, (Bn, max(n, m), 3)) + rng.uniform(-3, 3, (Bn, 1, 3))
+        x = torch.as_tensor(box[:, :n].astype(np.float32), device="cuda")
+        y = torch.as_tensor((box[:, :m] + rng.normal(size=(Bn, m, 3)) * 0.01).astype(
+            np.float32), device="cuda")
+        name = f"sinkhorn {Bn}x{n}x{m}"
+        plans[name] = cs.forward_plan(Bn, n, m)
+        with torch.no_grad():
+            got = cs.extrapolated_forward_cuda(x, y, schedule)
+            it = cs.sinkhorn_iterates_cuda(x, y, schedule)
+            want = cs.ot_extrapolated_potentials_plain(x, y, schedule)
+            want += cs.sinkhorn_iterates_plain(x, y, schedule)
+        for g, w in zip(list(got) + list(it), list(want) + list(want[2:])):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5,
+                                       msg=lambda msg, name=name: f"{name}: {msg}")
+        del want
+        errs = []
+        for cf, cg in ((torch.full((Bn, n), 1.0 / n, device="cuda"),
+                        torch.full((Bn, m), 1.0 / m, device="cuda")),
+                       (torch.full((Bn, n), 1.0 / n, device="cuda"), None)):
+            with torch.no_grad():
+                d = cs.extrapolated_backward_cuda(x, y, *got, cf, cg, schedule[-1])
+                again = cs.extrapolated_backward_cuda(x, y, *got, cf, cg, schedule[-1])
+            if not all(torch.equal(a, b) for a, b in zip(d, again)):
+                raise AssertionError(f"{name} backward: a second launch gave other bits")
+            xv, yv = x.double().requires_grad_(True), y.double().requires_grad_(True)
+            f, g = cs.ot_extrapolated_potentials_plain(xv, yv, schedule)
+            total = sum(torch.sum(c.double() * p) for c, p in ((cf, f), (cg, g))
+                        if c is not None)
+            w = torch.autograd.grad(total, (xv, yv))
+            for a, b in zip(d, w):
+                top = float(b.abs().max())
+                torch.testing.assert_close(a.double(), b, rtol=2e-3, atol=1e-3 * top,
+                                           msg=lambda msg, name=name: f"{name} backward: {msg}")
+                errs.append(float((a.double() - b).abs().max()) / top)
+            del w, f, g, total
+        torch.cuda.empty_cache()
+        log(f"{name}: forward, iterates and backward ok (backward {max(errs):.2g} of the "
+            f"largest entry from the f64 plain gradient; repeats bit for bit); clusters of "
+            f"{plans[name]['cluster']} blocks of {plans[name]['threads']} threads, "
+            f"each side streamed in tiles of {plans[name]['tile']} points")
+    return plans
 
 
 def phase_optim(torch, report, state, profile: bool):
@@ -2651,6 +2736,7 @@ def summary_line(report) -> str:
     fps = "/".join(f"{row['ms']:.3f}" for row in report["fps"]["shapes"])
     attn_bwd = "/".join(f"{row['ms']:.3f}"
                         for row in report["edge_attention_bwd"]["shapes"])
+    sink = report["sinkhorn_per_launch"]
     heads = (f"row 5 {report['layer0']['ms']:.4f} ms in 2, row 14 layers 2-6 "
              f"{attn_bwd} ms a step, "
              f"row 2 {report['knn']['fused_path']['ms']:.3f} ms in 12 launches "
@@ -2660,7 +2746,10 @@ def summary_line(report) -> str:
              f"(layers 2-6 {attn}), row 6 {report['edge_mean']['ms']:.4f} ms "
              f"in 2 (products {mean['products_ms']:.4f} a launch), row 4 "
              f"{report['knn_topk']['ms']:.4f} ms in 2, row 3 "
-             f"{report['icp_stats']['per_launch']['ms']:.5f} ms a launch; "
+             f"{report['icp_stats']['per_launch']['ms']:.5f} ms a launch, row 9 "
+             f"{sink['sinkhorn']['ms']:.4f} ms a launch, row 10 "
+             f"{sink['sinkhorn_bwd_both']['ms']:.4f}/{sink['sinkhorn_bwd_f_only']['ms']:.4f}, "
+             f"row 11 {sink['sinkhorn_iterates']['ms']:.4f}; "
              f"fused call peak {report['pipeline']['peak_mem_gb']:.3f} GB; ")
     return (f"summary: {heads}scene-pairs/s fused {report['pipeline']['scene_pairs_per_s']:.4f}, "
             f"default {report['pipeline_default_config']['scene_pairs_per_s']:.4f}, "

@@ -53,8 +53,9 @@ _SIGNATURES = {
     "lstpu_attention_products": [_P] * 8 + [_I] * 5 + [_P],
     "lstpu_edge_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
     "lstpu_scale": [_P, _P, _I, _I, _I, _P],
+    "lstpu_sinkhorn_plan": [_I] * 3 + [_P],
     "lstpu_sinkhorn": [_P] * 8 + [_I] * 4 + [_P],
-    "lstpu_sinkhorn_bwd": [_P] * 10 + [_F] + [_I] * 3 + [_P],
+    "lstpu_sinkhorn_bwd": [_P] * 12 + [_F] + [_I] * 3 + [_P],
     "lstpu_layer0_edge_mean_bwd": [_P] * 9 + [_I] * 4 + [_F, _P],
     "lstpu_edge_mean_bwd": [_P] * 12 + [_I] * 6 + [_F, _P],
     "lstpu_edge_attention_bwd": [_P] * 8 + [_I] * 6 + [_F, _P],
@@ -67,7 +68,7 @@ _SIGNATURES = {
     "lstpu_knn_topk_max_top": [],
     "lstpu_scale_tile": [],
     "lstpu_scale_max_top": [],
-    "lstpu_sinkhorn_max_points": [],
+    "lstpu_sinkhorn_bwd_rows": [],
     "lstpu_sinkhorn_max_schedule": [],
     "lstpu_wgrad_replicas": [],
 }

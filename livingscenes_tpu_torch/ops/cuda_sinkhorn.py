@@ -16,6 +16,10 @@ adds one undamped pair at the last eps, (f_out, g_out) = (ft, gt), and is
 differentiable in x and y through that pair alone: the iterates count as
 constants (the gradient at the converged potentials). On the card neither
 function writes a matrix to device memory; the backward is a kernel too.
+Both kernels take any N and M: the forward runs each pair on a cluster of
+blocks (`forward_plan` says how many) and streams each side through shared
+memory, the backward sums its column terms in a fixed order through a
+scratch buffer.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _cuda
+from .cuda_icp import pair_counters
 
 launches = 0  # forward launches (iterates + final pair) since last set to 0
 bwd_launches = 0  # backward launches since last set to 0
@@ -83,28 +88,31 @@ def ot_extrapolated_potentials_plain(x, y, schedule: Sequence[float]):
 
 
 @functools.lru_cache(maxsize=64)
-def _schedule_arrays(schedule: Tuple[float, ...]):
-    """(eps, 1 / eps) as C float arrays; the reciprocal is rounded once from
-    the double, as a compile-time constant would be."""
-    n = len(schedule)
-    return ((ctypes.c_float * n)(*schedule),
-            (ctypes.c_float * n)(*[1.0 / e for e in schedule]))
+def _reciprocals(schedule: Tuple[float, ...]):
+    """1 / eps of each temperature as a C float array, rounded once from the
+    double, as a compile-time constant would be."""
+    return (ctypes.c_float * len(schedule))(*[1.0 / e for e in schedule])
 
 
 def _check_pair(name: str, x, y):
-    """Raise unless x (B, N, 3), y (B, M, 3) are float32 on the card and fit
-    one block; returns the kernel library."""
+    """Raise unless x (B, N, 3), y (B, M, 3) are float32 on the card;
+    returns the kernel library."""
     _cuda.require_cuda(name, x, y, dtype=torch.float32)
-    lib = _cuda.lib()
     if x.dim() != 3 or y.dim() != 3 or x.shape[-1] != 3 or y.shape[-1] != 3 \
             or x.shape[0] != y.shape[0]:
         raise ValueError(f"{name}: x (B, N, 3) and y (B, M, 3), got "
                          f"{tuple(x.shape)} and {tuple(y.shape)}")
-    limit = lib.lstpu_sinkhorn_max_points()
-    if x.shape[1] + y.shape[1] > limit:
-        raise ValueError(f"{name}: N + M = {x.shape[1] + y.shape[1]} exceeds "
-                         f"{limit}, what one block's shared memory holds")
-    return lib
+    return _cuda.lib()
+
+
+def forward_plan(B: int, N: int, M: int) -> dict:
+    """The launch shape the forward kernel takes for B pairs of N x M:
+    `cluster` blocks a pair (a thread-block cluster), `threads` a block,
+    `tile`, the points of a side streamed through shared memory at once,
+    and the `scratch` floats a pair that hold its potentials."""
+    out = (ctypes.c_int * 4)()
+    _cuda.check(_cuda.lib().lstpu_sinkhorn_plan(B, N, M, out), "sinkhorn_plan")
+    return {"cluster": out[0], "threads": out[1], "tile": out[2], "scratch": out[3]}
 
 
 def _forward_cuda(name: str, x, y, schedule, final: bool):
@@ -116,15 +124,17 @@ def _forward_cuda(name: str, x, y, schedule, final: bool):
         raise ValueError(f"{name}: temperatures must be positive")
     B, N, _ = x.shape
     M = y.shape[1]
+    plan = forward_plan(B, N, M)
     outs = [torch.empty((B, n), dtype=torch.float32, device=x.device)
             for n in ((N, M, N, M) if final else (N, M))]
+    # the potentials' double buffer in device memory
+    pot = torch.empty((B, plan["scratch"]), dtype=torch.float32, device=x.device)
     # the C entry takes f_out, g_out, f_it, g_it; without the first two it
     # stops before the final pair
     ptrs = ([] if final else [None, None]) + [o.data_ptr() for o in outs]
-    eps, inv = _schedule_arrays(schedule)
     err = lib.lstpu_sinkhorn(
-        x.data_ptr(), y.data_ptr(), *ptrs, eps, inv, len(schedule), B, N, M,
-        _cuda.stream_ptr(x))
+        x.data_ptr(), y.data_ptr(), *ptrs, pot.data_ptr(),
+        _reciprocals(schedule), len(schedule), B, N, M, _cuda.stream_ptr(x))
     _cuda.check(err, name)
     return outs
 
@@ -164,14 +174,21 @@ def extrapolated_backward_cuda(x, y, f_out, g_out, f_it, g_it, cf, cg, eps: floa
     for t, n in ((f_out, N), (g_out, M), (f_it, N), (g_it, M), (cf, N), (cg, M)):
         if t is not None and t.shape != (B, n):
             raise ValueError(f"sinkhorn_bwd: expected {(B, n)}, got {tuple(t.shape)}")
+    if cf is None and cg is None:
+        raise ValueError("sinkhorn_bwd: at least one of cf and cg is needed")
     dx = torch.empty_like(x)
     dy = torch.empty_like(y)
+    # the row tiles' column sums, folded in tile order by the last block of
+    # each pair
+    tiles = -(-N // lib.lstpu_sinkhorn_bwd_rows())
+    partial = torch.empty((B, tiles, 3, M), dtype=torch.float32, device=x.device)
     err = lib.lstpu_sinkhorn_bwd(
         x.data_ptr(), y.data_ptr(), f_out.data_ptr(), g_out.data_ptr(),
         f_it.data_ptr(), g_it.data_ptr(),
         None if cf is None else cf.data_ptr(),
         None if cg is None else cg.data_ptr(),
-        dx.data_ptr(), dy.data_ptr(), 1.0 / eps, B, N, M,
+        dx.data_ptr(), dy.data_ptr(), partial.data_ptr(),
+        pair_counters(x, B).data_ptr(), 1.0 / eps, B, N, M,
         _cuda.stream_ptr(x))
     _cuda.check(err, "sinkhorn_bwd")
     bwd_launches += 1

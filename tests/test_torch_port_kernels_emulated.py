@@ -7,7 +7,8 @@ stand-in for the CUDA runtime (CUDA_RUNTIME_STAND_IN below, written out as
 the `cuda_runtime.h` the sources include: blocks one after another, a
 block's threads as OS threads, barriers for __syncthreads and the warp
 shuffles, dynamic shared memory poisoned with NaN; the warp reductions,
-cp.async and its waits). Only the launches
+cp.async and its waits; cudaLaunchKernelEx with a cluster dimension, whose
+blocks run at the same time and share cluster.sync()). Only the launches
 `kernel<<<grid, block, shared, stream>>>(...)` and the `extern __shared__`
 declarations are rewritten; atomicAdd and atomicMax are compare-and-swap
 loops. The port's real
@@ -24,18 +25,18 @@ sources, memory alignment, or speed; `python3 chip_smoke.py` on the card
 holds every kernel against its plain version at the main path's shapes
 and at small ragged ones.
 
-The FPS, kNN and kNN + scale kernels' cases and those of the backward
-kernels are in files of their own (tests/test_torch_port_kernels_emulated_
-fps.py, _knn.py, _knn_cap.py and _bwd.py), which take the stand-in and the
-`on_host` fixture from here, so that no one file sets the length of a run
-of the tests over several workers.
+The FPS, kNN, kNN + scale and Sinkhorn kernels' cases and those of the
+backward kernels are in files of their own (tests/test_torch_port_kernels_
+emulated_fps.py, _knn.py, _knn_cap.py, _sinkhorn.py, _sinkhorn_stream.py
+and _bwd.py), which take the stand-in and the `on_host` fixture from here,
+so that no one file sets the length of a run of the tests over several
+workers.
 
 Tolerances: ICP statistics rtol 1e-4; the fused edge layers rtol 2e-4 plus
 atol 2e-5 of the largest magnitude, as on the card, and their backward
 kernels against autograd of the plain versions the same (the kernels add
-the scatter and the weight gradients with atomics, in no fixed order); the scale statistic rtol
-1e-6; the Sinkhorn potentials rtol/atol 1e-5 and their gradient rtol 1e-4
-plus atol 1e-6 (f32 rounding of arguments up to 1e3 in the exponentials).
+the scatter and the weight gradients with atomics, in no fixed order); the
+scale statistic rtol 1e-6.
 """
 import ctypes
 import re
@@ -48,16 +49,17 @@ import torch
 
 from livingscenes_tpu_torch.nn import cuda_attention, cuda_layer0
 from livingscenes_tpu_torch.nn.vec_layers import channel_equi_vec_normalize
-from livingscenes_tpu_torch.ops import _cuda, cuda_icp, cuda_scale, cuda_sinkhorn
-from livingscenes_tpu_torch.ops.sinkhorn import eps_annealing_schedule
+from livingscenes_tpu_torch.ops import _cuda, cuda_icp, cuda_scale
 
 CUDA_RUNTIME_STAND_IN = r'''// A stand-in for <cuda_runtime.h> that lets a host compiler build the port's
 // kernels (livingscenes_tpu_torch/csrc/*.cu) and run them on CPU threads.
 // It covers only what those sources use. The blocks of a launch run one
-// after another; the threads of a block are OS threads that meet at
-// barriers: __syncthreads() is a barrier over the block, a warp shuffle a
-// pair of barriers over the warp's 32 threads, so every thread of a warp
-// must reach a shuffle, as on the card. atomicAdd on a float is a
+// after another, or, launched by cudaLaunchKernelEx in clusters, one
+// cluster after another with the blocks of a cluster at the same time; the
+// threads of a block are OS threads that meet at barriers: __syncthreads()
+// is a barrier over the block, cluster.sync() one over the cluster's
+// blocks, a warp shuffle a pair of barriers over the warp's 32 threads, so
+// every thread of a warp must reach a shuffle, as on the card. atomicAdd on a float is a
 // compare-and-swap loop on a std::atomic_ref (on a float4 four of them),
 // on an unsigned a fetch_add;
 // atomicMax on an unsigned a compare-and-swap loop;
@@ -146,49 +148,70 @@ inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst
 
 namespace cuda_emulation {
 
-inline thread_local dim3 thread_idx, block_idx;
-inline dim3 grid_dim, block_dim;
-inline std::unique_ptr<std::barrier<>> block_barrier;
-inline std::vector<std::unique_ptr<std::barrier<>>> warp_barrier;
-inline std::vector<uint64_t> warp_slots;
-inline float* dynamic_shared = nullptr;
+// One block of the running cluster: its barrier, its warps' barriers and
+// shuffle slots, its dynamic shared memory.
+struct Block {
+  std::unique_ptr<std::barrier<>> barrier;
+  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::vector<uint64_t> slots;
+  float* shared = nullptr;
+};
 
-inline void poison(size_t bytes) {
-  for (size_t i = 0; i < bytes / sizeof(float); ++i) dynamic_shared[i] = NAN;
+inline thread_local dim3 thread_idx, block_idx;
+inline thread_local unsigned block_rank = 0;  // within the cluster
+inline thread_local Block* block = nullptr;
+inline thread_local float* dynamic_shared = nullptr;
+inline dim3 grid_dim, block_dim;
+inline unsigned cluster_size = 1;
+inline std::vector<Block> cluster_blocks;
+inline std::unique_ptr<std::barrier<>> cluster_barrier;
+
+inline void poison(float* shared, size_t bytes) {
+  for (size_t i = 0; i < bytes / sizeof(float); ++i) shared[i] = NAN;
 }
 
-// Run `body` once per (block, thread) of the launch.
-inline void launch(dim3 grid, dim3 block, size_t shared_bytes,
-                   const std::function<void()>& body) {
+// Run `body` once per (block, thread) of the launch. The clusters of
+// `cluster` consecutive blocks along x run one after another; the blocks of
+// one cluster run at the same time.
+inline void launch(dim3 grid, dim3 block_shape, size_t shared_bytes,
+                   const std::function<void()>& body, unsigned cluster = 1) {
   grid_dim = grid;
-  block_dim = block;
-  const int threads = block.x;
+  block_dim = block_shape;
+  cluster_size = cluster;
+  const int threads = block_shape.x;
   const int warps = (threads + 31) / 32;
-  block_barrier = std::make_unique<std::barrier<>>(threads);
-  warp_barrier.clear();
-  for (int w = 0; w < warps; ++w)
-    warp_barrier.push_back(
-        std::make_unique<std::barrier<>>(std::min(32, threads - 32 * w)));
-  warp_slots.assign(warps * 32, 0);
-  dynamic_shared =
-      static_cast<float*>(std::aligned_alloc(64, (shared_bytes / 64 + 2) * 64));
-  poison(shared_bytes);
+  cluster_blocks.clear();
+  cluster_blocks.resize(cluster);
+  for (Block& blk : cluster_blocks) {
+    blk.barrier = std::make_unique<std::barrier<>>(threads);
+    for (int w = 0; w < warps; ++w)
+      blk.warps.push_back(
+          std::make_unique<std::barrier<>>(std::min(32, threads - 32 * w)));
+    blk.slots.assign(warps * 32, 0);
+    blk.shared = static_cast<float*>(
+        std::aligned_alloc(64, (shared_bytes / 64 + 2) * 64));
+    poison(blk.shared, shared_bytes);
+  }
+  cluster_barrier = std::make_unique<std::barrier<>>(threads * cluster);
   std::vector<std::thread> pool;
-  for (int t = 0; t < threads; ++t)
+  for (unsigned t = 0; t < threads * cluster; ++t)
     pool.emplace_back([&, t] {
-      thread_idx = dim3(t);
+      thread_idx = dim3(t % threads);
+      block_rank = t / threads;
+      block = &cluster_blocks[block_rank];
+      dynamic_shared = block->shared;
       for (unsigned by = 0; by < grid.y; ++by)
-        for (unsigned bx = 0; bx < grid.x; ++bx) {
-          block_idx = dim3(bx, by);
+        for (unsigned bx = 0; bx < grid.x; bx += cluster) {
+          block_idx = dim3(bx + block_rank, by);
           body();
-          block_barrier->arrive_and_wait();
-          if (t == 0) poison(shared_bytes);
-          block_barrier->arrive_and_wait();
+          cluster_barrier->arrive_and_wait();
+          if (thread_idx.x == 0) poison(block->shared, shared_bytes);
+          cluster_barrier->arrive_and_wait();
         }
     });
   for (auto& th : pool) th.join();
-  std::free(dynamic_shared);
-  dynamic_shared = nullptr;
+  for (Block& blk : cluster_blocks) std::free(blk.shared);
+  cluster_blocks.clear();
 }
 
 // Every lane's v folded with `op` over the warp's lanes, for each lane.
@@ -199,16 +222,16 @@ inline T warp_reduce(T v, Op op) {
   const int lanes = std::min(32, (int)block_dim.x - 32 * w);
   uint64_t raw = 0;
   std::memcpy(&raw, &v, sizeof(T));
-  warp_slots[t] = raw;
-  warp_barrier[w]->arrive_and_wait();
+  block->slots[t] = raw;
+  block->warps[w]->arrive_and_wait();
   T out;
-  std::memcpy(&out, &warp_slots[w * 32], sizeof(T));
+  std::memcpy(&out, &block->slots[w * 32], sizeof(T));
   for (int l = 1; l < lanes; ++l) {
     T other;
-    std::memcpy(&other, &warp_slots[w * 32 + l], sizeof(T));
+    std::memcpy(&other, &block->slots[w * 32 + l], sizeof(T));
     out = op(out, other);
   }
-  warp_barrier[w]->arrive_and_wait();
+  block->warps[w]->arrive_and_wait();
   return out;
 }
 
@@ -218,12 +241,12 @@ inline T exchange(T v, int source_lane) {
   const int t = thread_idx.x, w = t / 32;
   uint64_t raw = 0;
   std::memcpy(&raw, &v, sizeof(T));
-  warp_slots[t] = raw;
-  warp_barrier[w]->arrive_and_wait();
+  block->slots[t] = raw;
+  block->warps[w]->arrive_and_wait();
   if (source_lane >= 0 && source_lane < 32 &&
       w * 32 + source_lane < (int)block_dim.x)
-    raw = warp_slots[w * 32 + source_lane];
-  warp_barrier[w]->arrive_and_wait();
+    raw = block->slots[w * 32 + source_lane];
+  block->warps[w]->arrive_and_wait();
   T out;
   std::memcpy(&out, &raw, sizeof(T));
   return out;
@@ -233,12 +256,11 @@ inline T exchange(T v, int source_lane) {
 
 #define threadIdx cuda_emulation::thread_idx
 #define blockIdx cuda_emulation::block_idx
-#define gridDim cuda_emulation::grid_dim
-#define blockDim cuda_emulation::block_dim
+// (not macros: cudaLaunchConfig_t has members of these names)
+inline const dim3& gridDim = cuda_emulation::grid_dim;
+inline const dim3& blockDim = cuda_emulation::block_dim;
 
-inline void __syncthreads() {
-  cuda_emulation::block_barrier->arrive_and_wait();
-}
+inline void __syncthreads() { cuda_emulation::block->barrier->arrive_and_wait(); }
 template <class T>
 inline T __shfl_xor_sync(unsigned, T v, int mask) {
   return cuda_emulation::exchange(v, (int)(threadIdx.x % 32) ^ mask);
@@ -252,7 +274,7 @@ inline T __shfl_sync(unsigned, T v, int lane) {
   return cuda_emulation::exchange(v, lane);
 }
 inline void __syncwarp(unsigned = 0xffffffffu) {
-  cuda_emulation::warp_barrier[threadIdx.x / 32]->arrive_and_wait();
+  cuda_emulation::block->warps[threadIdx.x / 32]->arrive_and_wait();
 }
 inline unsigned __reduce_max_sync(unsigned, unsigned v) {
   return cuda_emulation::warp_reduce(v, [](unsigned a, unsigned b) { return std::max(a, b); });
@@ -282,6 +304,65 @@ inline void __pipeline_memcpy_async(void* dst, const void* src, size_t size,
 }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
+// A load past L1 (ld.global.cg): a plain load here.
+template <class T>
+inline T __ldcg(const T* p) {
+  return *p;
+}
+
+// The device: an H100's 132 SMs.
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 132;
+  return cudaSuccess;
+}
+
+// cudaLaunchKernelEx with a cluster dimension along x: the blocks of each
+// cluster run at the same time (cuda_emulation::launch).
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+union cudaLaunchAttributeValue {
+  struct {
+    unsigned x, y, z;
+  } clusterDim;
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... P, class... A>
+inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                                      void (*kernel)(P...), A&&... args) {
+  unsigned cluster = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension)
+      cluster = cfg->attrs[i].val.clusterDim.x;
+  if (cluster == 0 || cfg->gridDim.x % cluster != 0) return cudaErrorInvalidValue;
+  cuda_emulation::launch(cfg->gridDim, cfg->blockDim, cfg->dynamicSmemBytes,
+                         [&] { kernel(args...); }, cluster);
+  return cudaSuccess;
+}
+
+// The cluster of cooperative_groups: sync() a barrier over every thread of
+// the cluster's blocks.
+namespace cooperative_groups {
+struct cluster_group {
+  void sync() const { cuda_emulation::cluster_barrier->arrive_and_wait(); }
+  unsigned block_rank() const { return cuda_emulation::block_rank; }
+  unsigned num_blocks() const { return cuda_emulation::cluster_size; }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
 '''
 
 
@@ -321,8 +402,10 @@ def emulated(tmp_path_factory):
         pytest.skip("no g++ to build the kernels for the host")
     work = tmp_path_factory.mktemp("cuda_emulation")
     (work / "cuda_runtime.h").write_text(CUDA_RUNTIME_STAND_IN)
-    # the pipeline primitives (cp.async) are in the same stand-in
-    (work / "cuda_pipeline.h").write_text('#pragma once\n#include "cuda_runtime.h"\n')
+    # the pipeline primitives (cp.async) and the cluster of
+    # cooperative_groups are in the same stand-in
+    for header in ("cuda_pipeline.h", "cooperative_groups.h"):
+        (work / header).write_text('#pragma once\n#include "cuda_runtime.h"\n')
     for path in _cuda.CSRC.iterdir():
         name = path.name.replace(".cu", ".cpp") if path.suffix == ".cu" else path.name
         (work / name).write_text(rewrite_for_host(path.read_text()))
@@ -536,52 +619,6 @@ def test_scale_kernel(on_host, N, k, tied):
     got = cuda_scale.top_k_mean_pairwise_distance_cuda(pc, k)
     want = cuda_scale.top_k_mean_pairwise_distance_plain(pc, k)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
-
-
-SINKHORN_SHAPES = [
-    # N, M, schedule
-    (50, 50, eps_annealing_schedule(0.05)),   # the refinement's schedule
-    (70, 33, eps_annealing_schedule(0.1)),    # N != M, no multiple of a warp
-    (20, 45, [0.01] * 5),                     # a single temperature, repeated
-]
-
-
-def sinkhorn_clouds(rng, N, M):
-    x = f32(rng, 2, N, 3, scale=0.3)
-    y = f32(rng, 2, M, 3, scale=0.3) + 0.1
-    return x, y
-
-
-@pytest.mark.parametrize("N,M,schedule", SINKHORN_SHAPES)
-def test_sinkhorn_kernel(on_host, N, M, schedule):
-    x, y = sinkhorn_clouds(np.random.default_rng(8), N, M)
-    got = cuda_sinkhorn.extrapolated_forward_cuda(x, y, schedule)
-    want = cuda_sinkhorn.ot_extrapolated_potentials_plain(x, y, schedule)
-    want += cuda_sinkhorn.sinkhorn_iterates_plain(x, y, schedule)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
-    # the same code stopped before the final pair
-    for g, w in zip(cuda_sinkhorn.sinkhorn_iterates_cuda(x, y, schedule), want[2:]):
-        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.parametrize("N,M,schedule", SINKHORN_SHAPES)
-@pytest.mark.parametrize("cots", ["both", "f_only", "g_only"])
-def test_sinkhorn_bwd_kernel(on_host, N, M, schedule, cots):
-    rng = np.random.default_rng(9)
-    x, y = sinkhorn_clouds(rng, N, M)
-    cf = f32(rng, 2, N) if cots != "g_only" else None
-    cg = f32(rng, 2, M) if cots != "f_only" else None
-    saved = cuda_sinkhorn.extrapolated_forward_cuda(x, y, schedule)
-    dx, dy = cuda_sinkhorn.extrapolated_backward_cuda(
-        x, y, *saved, cf, cg, schedule[-1])
-    with torch.enable_grad():
-        xv, yv = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
-        f, g = cuda_sinkhorn.ot_extrapolated_potentials_plain(xv, yv, schedule)
-        total = sum(torch.sum(c * p) for c, p in ((cf, f), (cg, g)) if c is not None)
-        wx, wy = torch.autograd.grad(total, (xv, yv))
-    torch.testing.assert_close(dx, wx, rtol=1e-4, atol=1e-6)
-    torch.testing.assert_close(dy, wy, rtol=1e-4, atol=1e-6)
 
 
 def assert_all_close(got, want):
