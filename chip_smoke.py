@@ -68,8 +68,9 @@
    decide, timed, and at small ragged shapes (in 3.). Then
    livingscenes_tpu_torch.train.run.main runs configs/production_r5.yaml
    (full width, batch 64) from the r5 checkpoint for 20 steps with the
-   launch counts checked (the attention backward's edge pass and, apart,
-   its five launches of per-point products and reductions), every plain
+   launch counts checked (the mean-edge and attention backwards' edge
+   passes and, apart, the five launches of per-point products and
+   reductions of each), every plain
    version forbidden and the backward kernels' launches timed as they run;
    from its state
    the step is timed (data, forward, backward, optimizer; peak memory), one
@@ -119,13 +120,17 @@ TRAIN_TIMED_STEPS = 10  # timed steps after 3 of warm-up
 TRAIN_FRESH_STEPS = 30  # steps from a fresh init whose loss must fall
 TRAIN_CPU_BATCH = 8  # batch of the card-against-CPU step
 # kernel launches of one training step: FPS at layers 2, 4, 5, a kNN graph
-# per layer, each fused layer forward and backward (the attention backward's
-# edge pass after its two launches of per-point rows, and before its three
-# of products and reductions, at each of the five layers)
+# per layer, each fused layer forward and backward (the layer-0 backward's
+# edge pass and its fold; the mean-edge and the attention backward's edge
+# passes each after two launches of per-point rows and before three of
+# products and reductions, at layer 1 and at each of the five attention
+# layers)
 TRAIN_STEP_LAUNCHES = {"fps": 3, "knn": 7, "layer0": 1, "edge_mean": 1,
                        "edge_mean_products": 2,
                        "edge_attention": 5, "edge_attention_products": 10,
-                       "layer0_bwd": 1, "edge_mean_bwd": 1,
+                       "layer0_bwd": 1, "layer0_bwd_fold": 1,
+                       "edge_mean_bwd": 1,
+                       "edge_mean_bwd_products": 5,
                        "edge_attention_bwd": 5,
                        "edge_attention_bwd_products": 25}
 # (Nq, Np, C_in) of the kNN graph of encoder layers 0-6; D = 3 C_in.
@@ -1265,13 +1270,14 @@ def phase_small_shapes(torch, report):
         idx[:, 1::3, 1] = idx[:, 1::3, 2]
         return torch.as_tensor(idx, device="cuda")
 
+    # layer 0 at O = 132 and 512: a point's threads span several warps
     cases = [("layer0", (f32(2, n, 3), repeated(n, n, K), f32(O, 3, scale=0.5),
                          f32(O, O, scale=0.2), 0.2), n, O)
-             for n, K, O in ((40, 16, 32), (33, 8, 48), (18, 16, 132))]
+             for n, K, O in ((40, 16, 32), (33, 8, 48), (18, 16, 132), (7, 11, 512))]
     cases += [("edge_mean", (f32(2, ns, C, 3), f32(2, nd, C, 3), repeated(ns, nd, K),
                              f32(O, 2 * C, scale=0.2), f32(O, O, scale=0.2), 0.2), nd, O)
               for ns, nd, C, O, K in ((50, 50, 32, 32, 16), (40, 21, 16, 48, 8),
-                                      (30, 5, 36, 140, 7))]
+                                      (30, 5, 36, 140, 7), (14, 5, 8, 512, 9))]
     cases += [("edge_attention", (
         f32(2, ns, C, 3), f32(2, nd, C, 3), repeated(ns, nd, K),
         channel_equi_vec_normalize(f32(2, nd, O, 3)), f32(O, 2 * C, scale=0.2),
@@ -1289,6 +1295,20 @@ def phase_small_shapes(torch, report):
                     bwd_call(plain_fn, kind, args, g, torch.float64),
                     bwd_call(plain_fn, kind, args, g))
         done.append(name)
+    # layer 0 past 64 channels, two groups of points a block, K odd and
+    # even: each edge's sums over a point's channels and the destination's
+    # that follows meet in shared memory; d_W and d_D repeat bit for bit
+    for n, K, O in ((266, 5, 512), (530, 4, 132)):
+        args = (f32(2, n, 3), repeated(n, n, K), f32(O, 3, scale=0.5),
+                f32(O, O, scale=0.2), f32(2, n, O, 3))
+        name = f"layer0_bwd small repeat N={n} K={K} O={O}"
+        first = cuda_layer0.fused_layer0_edge_mean_bwd_cuda(*args)
+        for _ in range(20):
+            again = cuda_layer0.fused_layer0_edge_mean_bwd_cuda(*args)
+            if not (torch.equal(first[1], again[1])
+                    and torch.equal(first[2], again[2])):
+                raise AssertionError(f"{name}: d_W or d_D differ between calls")
+        done.append(f"{name} x21")
     # B pairs take clusters of the size the plan gives them on the H100's
     # 132 SMs: 8 for up to 16 pairs, 4, 2 and 1 for 20, 40 and 67, each
     # splitting its clouds raggedly
@@ -1348,7 +1368,12 @@ def counters():
             # row 7's per-point products: two launches before each edge pass
             "edge_attention_products": (cuda_attention, "products_launches"),
             "layer0_bwd": (cuda_layer0, "bwd_launches"),
+            # row 12's fold of its per-block partials: one a backward
+            "layer0_bwd_fold": (cuda_layer0, "bwd_fold_launches"),
             "edge_mean_bwd": (cuda_attention, "mean_bwd_launches"),
+            # row 13's per-point products and reductions: five a backward
+            "edge_mean_bwd_products": (cuda_attention,
+                                       "mean_bwd_products_launches"),
             "edge_attention_bwd": (cuda_attention, "attention_bwd_launches"),
             # row 14's per-point products and reductions: five a backward
             "edge_attention_bwd_products": (cuda_attention,
@@ -2869,13 +2894,20 @@ def main() -> int:
         })
     # rows 6 and 7 are three launches a layer: the edge pass, which
     # `launches` counts, after the two of its per-point products, counted
-    # apart; row 14 six: its edge pass and five of products and reductions
+    # apart; rows 13 and 14 six: the edge pass and five of products and
+    # reductions; row 12 two: the edge pass and the fold of its partials
     idle = [k["name"] for k in kernels if not k["launches"]]
-    row14 = next(k for k in kernels if k["name"] == "edge_attention_bwd")
-    row14["products_launches"] = report["training"]["launches"].get(
-        "edge_attention_bwd_products", 0)
-    if not row14["products_launches"]:
-        idle.append("edge_attention_bwd_products")
+    row = next(k for k in kernels if k["name"] == "layer0_bwd")
+    row["fold_launches"] = report["training"]["launches"].get(
+        "layer0_bwd_fold", 0)
+    if not row["fold_launches"]:
+        idle.append("layer0_bwd_fold")
+    for name in ("edge_mean_bwd", "edge_attention_bwd"):
+        row = next(k for k in kernels if k["name"] == name)
+        row["products_launches"] = report["training"]["launches"].get(
+            f"{name}_products", 0)
+        if not row["products_launches"]:
+            idle.append(f"{name}_products")
     for name in ("edge_mean", "edge_attention"):
         row = next(k for k in kernels if k["name"] == name)
         row["products_launches"] = launches[f"{name}_products"]

@@ -54,9 +54,8 @@
 //
 // Rounding: D (W a + W b) becomes (D W) a + (D W) b, so results move by
 // about an f32 ulp of the terms against the TPU kernel's association. The
-// backward kernel (attention_bwd.cu) still recomputes the forward per edge
-// through conv_rows and gemm of edge_common.cuh; both are f32 roundings of
-// the same function, and the training checks hold the pair together.
+// backward kernel (attention_bwd.cu) recomputes the same rows with this
+// file's lstpu_attention_products and the same per-edge sums.
 #include "edge_common.cuh"
 #include "point_products.cuh"
 

@@ -42,7 +42,8 @@
 //    red.global.add.v4.f32 on sm_90) into a zeroed buffer with P_src's
 //    layout: 12 O floats an edge over both branches.
 // 3. lstpu_attention_bwd_products (this file, three launches of
-//    point_products.cuh): Z = U + D^T V for every source and destination
+//    point_products.cuh edge_bwd_products, shared with mean_edge_bwd.cu's
+//    one branch): Z = U + D^T V for every source and destination
 //    row (in place of U) beside the split reductions of d_D_K and d_D_V;
 //    then d_src = Z_src W_l and d_dst = Z_dst W_delta (per point) beside
 //    the split reductions of d_W_l and d_W_delta; then the fold of the
@@ -86,58 +87,6 @@ struct EdgeBwdSmem {
     total = c2q + E * Oq;
   }
 };
-
-// y = Y + yd and kd = Kd + kdd of the thread's 4 channels of one edge: the
-// source's rows at ps (Y) and ps + kd_off (Kd), stride ld, plus the
-// destination's.
-__device__ __forceinline__ void edge_rows(const float* __restrict__ ps,
-                                          int kd_off, int ld,
-                                          const float (&yd)[3][4],
-                                          const float (&kdd)[3][4],
-                                          float (&y)[3][4], float (&kd)[3][4]) {
-  load12(ps, y, ld);
-  load12(ps + kd_off, kd, ld);
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      y[i][v] += yd[i][v];
-      kd[i][v] += kdd[i][v];
-    }
-}
-
-// The 12 floats of the thread's 4 channels of a (channel, component) row:
-// p[0..11] of q_n or g.
-__device__ __forceinline__ void load_quad(const float* __restrict__ p,
-                                          float (&v)[12]) {
-  const float4* p4 = reinterpret_cast<const float4*>(p);
-#pragma unroll
-  for (int t = 0; t < 3; ++t) {
-    const float4 a = p4[t];
-    v[4 * t] = a.x;
-    v[4 * t + 1] = a.y;
-    v[4 * t + 2] = a.z;
-    v[4 * t + 3] = a.w;
-  }
-}
-
-// rows[i * ld .. + 3] += v[i][0..3] for i < 3, by vector atomics.
-__device__ __forceinline__ void add12(float* rows, int ld,
-                                      const float (&v)[3][4]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    atomicAdd(reinterpret_cast<float4*>(rows + (size_t)i * ld),
-              make_float4(v[i][0], v[i][1], v[i][2], v[i][3]));
-}
-
-// rows[i * ld .. + 3] = v[i][0..3] for i < 3.
-__device__ __forceinline__ void store12(float* rows, int ld,
-                                        const float (&v)[3][4]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    *reinterpret_cast<float4*>(rows + (size_t)i * ld) =
-        make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
-}
 
 // two blocks an SM: at most 128 registers a thread
 __global__ void __launch_bounds__(kThreads, 2)
@@ -345,13 +294,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   dq4[2] = make_float4(dq_acc[2][2], dq_acc[0][3], dq_acc[1][3], dq_acc[2][3]);
 }
 
-// The number of partial sums of the reductions over `rows` rows: about one
-// for every 1024 rows, at most 256 (a fixed count for a shape).
-int reduction_splits(int rows) {
-  const int s = (rows + 1023) / 1024;
-  return s < 1 ? 1 : (s > 256 ? 256 : s);
-}
-
 }  // namespace
 
 // The edge pass. psrc (B, Ns, 3, 4 O), pdst (B, Nd, 3, 4 O) the per-point
@@ -399,68 +341,29 @@ extern "C" int lstpu_edge_attention_bwd(const void* psrc, const void* pdst,
 // Z = U + D^T V over U in grows, dsrc3 (B, Ns, 3, C) = Z_src W_l, ddst3
 // (B, Nd, 3, C) = Z_dst W_delta, and out (4 C O + 2 O O) = [d_W_l (2 O, C)
 // | d_D_K | d_D_V | d_W_delta (2 O, C)] through part, scratch of
-// lstpu_attention_bwd_splits(B, Ns, Nd) x (4 C O + 2 O O) floats. f32,
+// lstpu_edge_bwd_splits(B, Ns, Nd) x (4 C O + 2 O O) floats. f32,
 // contiguous, C and O multiples of 4. Three launches on `stream`.
 extern "C" int lstpu_attention_bwd_products(
     void* grows, const void* prows, const void* src3, const void* dst3,
     const void* W_l, const void* W_delta, const void* D_K, const void* D_V,
     void* dsrc3, void* ddst3, void* part, void* out, int B, int Ns, int Nd,
     int C, int O, void* stream) {
-  using lstpu_points::GemmGroup;
-  using lstpu_points::row_major;
-  using lstpu_points::rows_at_b;
   if (B <= 0 || Ns <= 0 || Nd <= 0 || C <= 0 || O <= 0 || C % 4 || O % 4)
     return (int)cudaErrorInvalidValue;
-  auto G = static_cast<float*>(grows);
-  auto P = static_cast<const float*>(prows);
-  auto st = static_cast<cudaStream_t>(stream);
-  const int ld = 4 * O;
-  const int rows_src = 3 * B * Ns, rows_dst = 3 * B * Nd;
-  const int rows_all = rows_src + rows_dst;
-  const int S = reduction_splits(rows_all);
-  const size_t len = 4 * (size_t)C * O + 2 * (size_t)O * O;
-  float* pw = static_cast<float*>(part);  // d_W_l partials
-  float* pdk = pw + 2 * (size_t)C * O;    // d_D_K partials
-  float* pdv = pdk + (size_t)O * O;       // d_D_V partials
-  float* pwd = pdv + (size_t)O * O;       // d_W_delta partials
-  float* Gd = G + (size_t)rows_src * ld;  // the destination rows
-  // Z = U + V D per branch (D^T V as a row times D), in place of U; the
-  // reductions d_D = sum over all rows of V^T Y
-  GemmGroup first{};
-  first.g[0] = row_major(G + 2 * O, ld, rows_all,
-                         static_cast<const float*>(D_K), O, G, ld, O, O);
-  first.g[0].add = G;
-  first.g[1] = row_major(G + 3 * O, ld, rows_all,
-                         static_cast<const float*>(D_V), O, G + O, ld, O, O);
-  first.g[1].add = G + O;
-  first.g[2] = rows_at_b(G + 2 * O, ld, O, P, ld, O, rows_all, pdk, S, len);
-  first.g[3] = rows_at_b(G + 3 * O, ld, O, P + O, ld, O, rows_all, pdv, S,
-                         len);
-  first.count = 4;
-  int err = lstpu_points::run_group(first, st);
-  if (err) return err;
-  // d_src = Z_src W_l and d_dst = Z_dst W_delta per point; d_W_l and
-  // d_W_delta = the sums over the source and the destination rows of
-  // Z^T src and Z^T dst
-  GemmGroup second{};
-  second.g[0] = row_major(G, ld, rows_src, static_cast<const float*>(W_l), C,
-                          static_cast<float*>(dsrc3), C, C, 2 * O);
-  second.g[1] = rows_at_b(G, ld, 2 * O, static_cast<const float*>(src3), C, C,
-                          rows_src, pw, S, len);
-  second.g[2] = row_major(Gd, ld, rows_dst,
-                          static_cast<const float*>(W_delta), C,
-                          static_cast<float*>(ddst3), C, C, 2 * O);
-  second.g[3] = rows_at_b(Gd, ld, 2 * O, static_cast<const float*>(dst3), C, C,
-                          rows_dst, pwd, S, len);
-  second.count = 4;
-  err = lstpu_points::run_group(second, st);
-  if (err) return err;
-  return lstpu_points::fold_splits(static_cast<const float*>(part),
-                                   static_cast<float*>(out), (int)len, S, st);
+  const float* D[2] = {static_cast<const float*>(D_K),
+                       static_cast<const float*>(D_V)};
+  return lstpu_points::edge_bwd_products(
+      static_cast<float*>(grows), static_cast<const float*>(prows),
+      static_cast<const float*>(src3), static_cast<const float*>(dst3),
+      static_cast<const float*>(W_l), static_cast<const float*>(W_delta), D, 2,
+      static_cast<float*>(dsrc3), static_cast<float*>(ddst3),
+      static_cast<float*>(part), static_cast<float*>(out), B, Ns, Nd, C, O,
+      static_cast<cudaStream_t>(stream));
 }
 
-// The count of partial sums that lstpu_attention_bwd_products needs
-// scratch for.
-extern "C" int lstpu_attention_bwd_splits(int B, int Ns, int Nd) {
-  return reduction_splits(3 * B * (Ns + Nd));
+// The count of partial sums that the edge backwards' products
+// (lstpu_attention_bwd_products here, lstpu_mean_bwd_products in
+// mean_edge_bwd.cu: point_products.cuh edge_bwd_products) need scratch for.
+extern "C" int lstpu_edge_bwd_splits(int B, int Ns, int Nd) {
+  return lstpu_points::reduction_splits(3 * B * (Ns + Nd));
 }

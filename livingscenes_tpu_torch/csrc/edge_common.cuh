@@ -1,24 +1,13 @@
-// Device code shared by the fused edge layers: the backward kernels of
-// layer 0 and the mean edge layer (layer0_bwd.cu, mean_edge_bwd.cu, through
-// edge_bwd.cuh), and the per-edge functions of the kernels whose products
-// are per point instead (layer0.cu, mean_edge.cu, attention.cu and
-// attention_bwd.cu: vec_act, vec_act_bwd, edge_features, quad_key_score,
-// attention_weights).
-//
-// The two backward kernels run, per destination point and its K <= 16
-// neighbours (edges),
-//
-//   y[e][o][i]   pre-activation rows, i = 0..2 the vector component
-//   kd = D y     the activation's direction (one O x O product per row)
-//   f = y - (y.k^) k^ + k^ leaky(y.k^),  k^ = kd / max(|kd|, 1e-12)
-//
-// and never write an (edges, O, 3) tensor to device memory. A block of 256
-// threads owns EB edges (whole destination points). The pre-activation rows
-// of one branch stay in shared memory as a row-major (3 EB) x O matrix; the
-// weights stream through a small shared tile, fetched one chunk ahead into
-// registers. The products are plain f32 FMAs on the CUDA cores: thread
-// (to, te) accumulates 2 edges x 3 components x 4 outputs per output tile
-// of OT = 4 TX columns, so one edge's three components meet in one thread.
+// Device code shared by the fused edge layers' kernels: the so3
+// activation and its VJP of one channel (vec_act, vec_act_bwd), with JAX's
+// tie rules; the per-edge work of the kernels whose products run once per
+// point (mean_edge.cu, attention.cu and their backward kernels
+// mean_edge_bwd.cu, attention_bwd.cu: load12, edge_features, edge_rows,
+// add12, store12, quad_key_score, attention_weights); and layer 0's edge
+// geometry and its rows from [W | D W] (layer0.cu and layer0_bwd.cu:
+// layer0_dw, layer0_unit, layer0_edge, Layer0Channel), so that each
+// backward recomputes its forward's rows with the forward's own code and
+// association, and an activation takes the same branch in both.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -26,263 +15,18 @@
 namespace lstpu_edge {
 
 constexpr int kThreads = 256;
-constexpr int kKC = 16;   // reduction chunk of the weight tile
-constexpr int kEPT = 2;   // edges per thread
 constexpr int kMaxK = 16;
 constexpr int kMaxSmem = 227 * 1024;
-
-template <int TX>
-struct Tile {
-  static constexpr int OT = 4 * TX;            // output columns per tile
-  static constexpr int TE = kThreads / TX;     // edge groups
-  static constexpr int EB = TE * kEPT;         // edges per block
-  static constexpr int LDB = OT + 4;           // weight tile row stride
-  static constexpr int NLD = (kKC * TX + kThreads - 1) / kThreads;
-  static constexpr int BS = kKC * LDB;         // floats of the weight tile
-};
-
-// Row stride of a shared operand with n columns: whole chunks, plus 4 so
-// that rows of different edge groups fall into different banks.
-__host__ __device__ inline int row_stride(int n) {
-  return (n + kKC - 1) / kKC * kKC + 4;
-}
 
 // The destination points and edges of one block.
 struct Block {
   int b;       // instance
   int n0;      // first destination point
-  int tn;      // destination points a block owns: EB / K
+  int tn;      // destination points a block owns
   int e_act;   // edges of the points that exist: min(tn, Nd - n0) * K
   int K;
   int Nd;
 };
-
-template <int TX>
-__device__ __forceinline__ Block make_block(int Nd, int K) {
-  Block blk;
-  blk.b = blockIdx.y;
-  blk.tn = Tile<TX>::EB / K;
-  blk.n0 = blockIdx.x * blk.tn;
-  const int left = Nd - blk.n0;
-  blk.e_act = (left < blk.tn ? left : blk.tn) * K;
-  blk.K = K;
-  blk.Nd = Nd;
-  return blk;
-}
-
-// idx_s[e] = source index of edge e, -1 for an edge that does not exist.
-template <int TX>
-__device__ __forceinline__ void load_idx(int* idx_s, const int32_t* idx,
-                                         const Block& blk) {
-  const int32_t* base = idx + ((size_t)blk.b * blk.Nd + blk.n0) * blk.K;
-  for (int e = threadIdx.x; e < Tile<TX>::EB; e += kThreads)
-    idx_s[e] = e < blk.e_act ? base[e] : -1;
-}
-
-// Zero columns [from, ld) of `rows` rows: the reduction reads whole chunks.
-__device__ __forceinline__ void zero_pad(float* m, int rows, int ld, int from) {
-  const int w = ld - from;
-  for (int t = threadIdx.x; t < rows * w; t += kThreads)
-    m[(t / w) * ld + from + t % w] = 0.0f;
-}
-
-// nn_s[(e*3 + i)*ldn + c] = src[idx_s[e]][c][i]; rows of missing edges are 0.
-// src_b is one instance's (Ns, C, 3).
-template <int TX>
-__device__ __forceinline__ void gather_rows(float* nn_s, int ldn,
-                                            const float* __restrict__ src_b,
-                                            int C, const int* idx_s) {
-  const int w = 3 * C;
-  for (int t = threadIdx.x; t < Tile<TX>::EB * w; t += kThreads) {
-    const int e = t / w, j = t % w;
-    const int s = idx_s[e];
-    nn_s[(e * 3 + j % 3) * ldn + j / 3] =
-        s >= 0 ? src_b[(size_t)s * w + j] : 0.0f;
-  }
-}
-
-template <int TX>
-__device__ __forceinline__ void fetch_b(float4 (&pre)[Tile<TX>::NLD],
-                                        const float* __restrict__ Bt, int ldb,
-                                        int c0, int cdim, int o0, int o_end) {
-#pragma unroll
-  for (int l = 0; l < Tile<TX>::NLD; ++l) {
-    const int v = threadIdx.x + l * kThreads;
-    const int c = c0 + v / TX, o = o0 + 4 * (v % TX);
-    pre[l] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (v < kKC * TX && c < cdim && o < o_end)
-      pre[l] = *reinterpret_cast<const float4*>(Bt + (size_t)c * ldb + o);
-  }
-}
-
-template <int TX>
-__device__ __forceinline__ void stash_b(const float4 (&pre)[Tile<TX>::NLD],
-                                        float* Bs) {
-#pragma unroll
-  for (int l = 0; l < Tile<TX>::NLD; ++l) {
-    const int v = threadIdx.x + l * kThreads;
-    if (v < kKC * TX)
-      *reinterpret_cast<float4*>(Bs + (v / TX) * Tile<TX>::LDB +
-                                 4 * (v % TX)) = pre[l];
-  }
-}
-
-// acc[j][i][v] += sum_c As[((te*kEPT + j)*3 + i)*lda + c] *
-//                       Bt[c*ldb + o0 + 4*to + v],   c in [0, cdim),
-// for the block's 3 EB rows and the OT columns from o0 (columns at or beyond
-// o_end count as 0). As is a shared operand whose columns up to the next
-// multiple of kKC are finite; Bt is row-major in device memory, 16-byte
-// aligned with ldb and o_end multiples of 4. Ends with a barrier.
-template <int TX>
-__device__ __forceinline__ void gemm_acc(float (&acc)[kEPT][3][4],
-                                         const float* As, int lda, int cdim,
-                                         const float* __restrict__ Bt, int ldb,
-                                         int o0, int o_end, float* Bs) {
-  using T = Tile<TX>;
-  const int to = threadIdx.x % TX, te = threadIdx.x / TX;
-  float4 pre[T::NLD];
-  fetch_b<TX>(pre, Bt, ldb, 0, cdim, o0, o_end);
-  for (int c0 = 0; c0 < cdim; c0 += kKC) {
-    stash_b<TX>(pre, Bs);
-    __syncthreads();
-    if (c0 + kKC < cdim) fetch_b<TX>(pre, Bt, ldb, c0 + kKC, cdim, o0, o_end);
-    const float* a_base = As + (te * kEPT * 3) * lda + c0;
-#pragma unroll
-    for (int c4 = 0; c4 < kKC / 4; ++c4) {
-      float4 bv[4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        bv[kk] = *reinterpret_cast<const float4*>(Bs + (c4 * 4 + kk) * T::LDB +
-                                                  4 * to);
-#pragma unroll
-      for (int j = 0; j < kEPT; ++j) {
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          const float4 a = *reinterpret_cast<const float4*>(
-              a_base + (j * 3 + i) * lda + c4 * 4);
-          float* r = acc[j][i];
-          r[0] = fmaf(a.x, bv[0].x, r[0]);
-          r[1] = fmaf(a.x, bv[0].y, r[1]);
-          r[2] = fmaf(a.x, bv[0].z, r[2]);
-          r[3] = fmaf(a.x, bv[0].w, r[3]);
-          r[0] = fmaf(a.y, bv[1].x, r[0]);
-          r[1] = fmaf(a.y, bv[1].y, r[1]);
-          r[2] = fmaf(a.y, bv[1].z, r[2]);
-          r[3] = fmaf(a.y, bv[1].w, r[3]);
-          r[0] = fmaf(a.z, bv[2].x, r[0]);
-          r[1] = fmaf(a.z, bv[2].y, r[1]);
-          r[2] = fmaf(a.z, bv[2].z, r[2]);
-          r[3] = fmaf(a.z, bv[2].w, r[3]);
-          r[0] = fmaf(a.w, bv[3].x, r[0]);
-          r[1] = fmaf(a.w, bv[3].y, r[1]);
-          r[2] = fmaf(a.w, bv[3].z, r[2]);
-          r[3] = fmaf(a.w, bv[3].w, r[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// gemm_acc into acc set to 0 first.
-template <int TX>
-__device__ __forceinline__ void gemm(float (&acc)[kEPT][3][4], const float* As,
-                                     int lda, int cdim,
-                                     const float* __restrict__ Bt, int ldb,
-                                     int o0, int o_end, float* Bs) {
-#pragma unroll
-  for (int j = 0; j < kEPT; ++j)
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[j][i][v] = 0.0f;
-  gemm_acc<TX>(acc, As, lda, cdim, Bt, ldb, o0, o_end, Bs);
-}
-
-// The edge convolution of one branch into shared memory:
-//   y_s[(e*3+i)*ldy + o] = sum_c nn_s[(e*3+i)*ldn + c] wl_t[c*ldw + o]
-//                          + ydst_b[(n*3 + i)*ldyd + o]
-// for o in [0, O), n the edge's destination point. wl_t and ydst_b point at
-// the branch's first column. Ends with a barrier.
-template <int TX>
-__device__ __forceinline__ void conv_rows(float* y_s, int ldy,
-                                          const float* nn_s, int ldn, int C,
-                                          const float* __restrict__ wl_t,
-                                          int ldw, int O,
-                                          const float* __restrict__ ydst_b,
-                                          int ldyd, const Block& blk,
-                                          float* Bs) {
-  const int to = threadIdx.x % TX, te = threadIdx.x / TX;
-  float acc[kEPT][3][4];
-  for (int o0 = 0; o0 < O; o0 += Tile<TX>::OT) {
-    gemm<TX>(acc, nn_s, ldn, C, wl_t, ldw, o0, O, Bs);
-    const int o = o0 + 4 * to;
-    if (o >= O) continue;
-#pragma unroll
-    for (int j = 0; j < kEPT; ++j) {
-      const int e = te * kEPT + j;
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        float4 d = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (e < blk.e_act)
-          d = *reinterpret_cast<const float4*>(
-              ydst_b + ((size_t)(blk.n0 + e / blk.K) * 3 + i) * ldyd + o);
-        *reinterpret_cast<float4*>(y_s + (e * 3 + i) * ldy + o) =
-            make_float4(acc[j][i][0] + d.x, acc[j][i][1] + d.y,
-                        acc[j][i][2] + d.z, acc[j][i][3] + d.w);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// Layer 0: per edge the nine scalars [cross(dst^, nn), nn - dst, dst] into
-// edge_s (EB, 12), dst^ = dst / max(|dst|, 1e-12) (zeros for missing
-// edges), then the pre-activation rows
-//   y_s[(e*3 + i)*ldy + o] = cross_i W[o][0] + (nn - dst)_i W[o][1]
-//                            + dst_i W[o][2]
-// for o < O. xyz_b is one instance's (N, 3). Ends with a barrier.
-template <int TX>
-__device__ __forceinline__ void layer0_rows(float* y_s, int ldy,
-                                            float* edge_s,
-                                            const float* __restrict__ xyz_b,
-                                            const float* __restrict__ W,
-                                            int O, const int* idx_s,
-                                            const Block& blk) {
-  constexpr int EB = Tile<TX>::EB;
-  for (int e = threadIdx.x; e < EB; e += kThreads) {
-    float* s = edge_s + e * 12;
-    if (e < blk.e_act) {
-      const float* d = xyz_b + (size_t)(blk.n0 + e / blk.K) * 3;
-      const float* p = xyz_b + (size_t)idx_s[e] * 3;
-      const float d0 = d[0], d1 = d[1], d2 = d[2];
-      const float n0 = p[0], n1 = p[1], n2 = p[2];
-      const float dn = fmaxf(sqrtf(d0 * d0 + d1 * d1 + d2 * d2), 1e-12f);
-      const float h0 = d0 / dn, h1 = d1 / dn, h2 = d2 / dn;
-      s[0] = h1 * n2 - h2 * n1;
-      s[1] = h2 * n0 - h0 * n2;
-      s[2] = h0 * n1 - h1 * n0;
-      s[3] = n0 - d0;
-      s[4] = n1 - d1;
-      s[5] = n2 - d2;
-      s[6] = d0;
-      s[7] = d1;
-      s[8] = d2;
-    } else {
-      for (int q = 0; q < 9; ++q) s[q] = 0.0f;
-    }
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < EB * O; t += kThreads) {
-    const int e = t / O, o = t % O;
-    const float* s = edge_s + e * 12;
-    const float wc = W[o * 3], wl = W[o * 3 + 1], wr = W[o * 3 + 2];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      y_s[(e * 3 + i) * ldy + o] = s[i] * wc + s[3 + i] * wl + s[6 + i] * wr;
-  }
-  __syncthreads();
-}
 
 // The so3 VecActivation of one channel: y (3 components), direction kd.
 // Keeps the association y - qpara*k^ + k^*acted, and qpara >= 0 takes the
@@ -434,8 +178,135 @@ __device__ __forceinline__ void attention_weights(const float* sq,
   __syncthreads();
 }
 
-// Launch configuration of the kernels that tile their outputs (layer0_bwd.cu
-// and mean_edge_bwd.cu): TX by the output width.
-inline int pick_tx(int O) { return O <= 32 ? 8 : (O <= 64 ? 16 : 32); }
+// y = Y + yd and kd = Kd + kdd of the thread's 4 channels of one edge: the
+// source's rows at ps (Y) and ps + kd_off (Kd), stride ld, plus the
+// destination's (the association of edge_features).
+__device__ __forceinline__ void edge_rows(const float* __restrict__ ps,
+                                          int kd_off, int ld,
+                                          const float (&yd)[3][4],
+                                          const float (&kdd)[3][4],
+                                          float (&y)[3][4], float (&kd)[3][4]) {
+  load12(ps, y, ld);
+  load12(ps + kd_off, kd, ld);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      y[i][v] += yd[i][v];
+      kd[i][v] += kdd[i][v];
+    }
+}
+
+// The 12 floats of the thread's 4 channels of a (channel, component) row:
+// p[0..11] of q_n or g.
+__device__ __forceinline__ void load_quad(const float* __restrict__ p,
+                                          float (&v)[12]) {
+  const float4* p4 = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    const float4 a = p4[t];
+    v[4 * t] = a.x;
+    v[4 * t + 1] = a.y;
+    v[4 * t + 2] = a.z;
+    v[4 * t + 3] = a.w;
+  }
+}
+
+// rows[i * ld .. + 3] += v[i][0..3] for i < 3, by vector atomics (atomicAdd
+// on a float4, one red.global.add.v4.f32 on sm_90).
+__device__ __forceinline__ void add12(float* rows, int ld,
+                                      const float (&v)[3][4]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    atomicAdd(reinterpret_cast<float4*>(rows + (size_t)i * ld),
+              make_float4(v[i][0], v[i][1], v[i][2], v[i][3]));
+}
+
+// rows[i * ld .. + 3] = v[i][0..3] for i < 3.
+__device__ __forceinline__ void store12(float* rows, int ld,
+                                        const float (&v)[3][4]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    *reinterpret_cast<float4*>(rows + (size_t)i * ld) =
+        make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+}
+
+// Layer 0 (layer0.cu, layer0_bwd.cu). Every edge channel is linear in the
+// three vectors (cross(dst^, nn), nn - dst, dst), so with DW = D W (O x 3)
+//   y[o][i]  = cross_i W[o][0]  + (nn - dst)_i W[o][1]  + dst_i W[o][2]
+//   Dy[o][i] = cross_i DW[o][0] + (nn - dst)_i DW[o][1] + dst_i DW[o][2]
+
+// dw_s[o * 3 + c] = sum_p D[o][p] W[p][c] in ascending p, for the block's
+// threads. W (O, 3), D (O, O) in device memory.
+__device__ __forceinline__ void layer0_dw(float* dw_s,
+                                          const float* __restrict__ W,
+                                          const float* __restrict__ D, int O) {
+  for (int t = threadIdx.x; t < 3 * O; t += blockDim.x) {
+    const int o = t / 3, c = t % 3;
+    const float* d_row = D + (size_t)o * O;
+    float s = 0.0f;
+#pragma unroll 8
+    for (int p = 0; p < O; ++p) s = fmaf(d_row[p], W[p * 3 + c], s);
+    dw_s[t] = s;
+  }
+}
+
+// The norm of dst clamped at 1e-12 and dst^ = dst / that.
+__device__ __forceinline__ float layer0_unit(const float (&d)[3],
+                                             float (&h)[3]) {
+  const float dn =
+      fmaxf(sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]), 1e-12f);
+  h[0] = d[0] / dn;
+  h[1] = d[1] / dn;
+  h[2] = d[2] / dn;
+  return dn;
+}
+
+// The edge's first two vectors: cross(dst^, nn) and nn - dst.
+__device__ __forceinline__ void layer0_edge(const float (&h)[3],
+                                            const float (&d)[3],
+                                            const float* p, float (&cr)[3],
+                                            float (&nd)[3]) {
+  const float n0 = p[0], n1 = p[1], n2 = p[2];
+  cr[0] = h[1] * n2 - h[2] * n1;
+  cr[1] = h[2] * n0 - h[0] * n2;
+  cr[2] = h[0] * n1 - h[1] * n0;
+  nd[0] = n0 - d[0];
+  nd[1] = n1 - d[1];
+  nd[2] = n2 - d[2];
+}
+
+// One channel o of a destination: W's and DW's columns and the
+// destination's terms dst_i W[o][2] and dst_i DW[o][2]; rows() gives y and
+// D y of an edge of that destination.
+struct Layer0Channel {
+  float wc, wl, wr, dwc, dwl, dwr, yd[3], kdd[3];
+  __device__ __forceinline__ Layer0Channel(const float* w_s,
+                                           const float* dw_s, int o,
+                                           const float (&d)[3]) {
+    const float* w = w_s + o * 3;
+    const float* dw = dw_s + o * 3;
+    wc = w[0];
+    wl = w[1];
+    wr = w[2];
+    dwc = dw[0];
+    dwl = dw[1];
+    dwr = dw[2];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      yd[i] = d[i] * wr;
+      kdd[i] = d[i] * dwr;
+    }
+  }
+  __device__ __forceinline__ void rows(const float (&cr)[3],
+                                       const float (&nd)[3], float (&y)[3],
+                                       float (&kd)[3]) const {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      y[i] = fmaf(cr[i], wc, fmaf(nd[i], wl, yd[i]));
+      kd[i] = fmaf(cr[i], dwc, fmaf(nd[i], dwl, kdd[i]));
+    }
+  }
+};
 
 }  // namespace lstpu_edge

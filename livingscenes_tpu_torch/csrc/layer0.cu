@@ -63,14 +63,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   for (int t = threadIdx.x; t < e_act; t += kThreads) idx_s[t] = idx_b[t];
   if (kStage)
     for (int t = threadIdx.x; t < 3 * N; t += kThreads) x_s[t] = xyz_b[t];
-  for (int t = threadIdx.x; t < 3 * O; t += kThreads) {
-    const int o = t / 3, c = t % 3;
-    const float* d_row = D + (size_t)o * O;
-    float s = 0.0f;
-#pragma unroll 8
-    for (int p = 0; p < O; ++p) s = fmaf(d_row[p], W[p * 3 + c], s);
-    dw_s[t] = s;
-  }
+  layer0_dw(dw_s, W, D, O);
   __syncthreads();
 
   const int pl = threadIdx.x / Oq, o = kCh * (threadIdx.x % Oq);
@@ -78,42 +71,21 @@ __global__ void __launch_bounds__(kThreads, 4)
   if (pl >= P || n >= N) return;
   const float* pts = kStage ? x_s : xyz_b;
   const int* idx_n = idx_s + pl * K;
-  const float d0 = pts[n * 3], d1 = pts[n * 3 + 1], d2 = pts[n * 3 + 2];
-  const float dn = fmaxf(sqrtf(d0 * d0 + d1 * d1 + d2 * d2), 1e-12f);
-  const float h0 = d0 / dn, h1 = d1 / dn, h2 = d2 / dn;
-  const float dst[3] = {d0, d1, d2};
+  const float d[3] = {pts[n * 3], pts[n * 3 + 1], pts[n * 3 + 2]};
+  float h[3];
+  layer0_unit(d, h);
   // the thread's channels: W and D W columns, the destination's terms
-  float wc[kCh], wl[kCh], dwc[kCh], dwl[kCh], yd[3][kCh], kdd[3][kCh];
-#pragma unroll
-  for (int v = 0; v < kCh; ++v) {
-    const float* w = w_s + (o + v) * 3;
-    const float* dw = dw_s + (o + v) * 3;
-    wc[v] = w[0];
-    wl[v] = w[1];
-    dwc[v] = dw[0];
-    dwl[v] = dw[1];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      yd[i][v] = dst[i] * w[2];
-      kdd[i][v] = dst[i] * dw[2];
-    }
-  }
+  const Layer0Channel ch[kCh] = {Layer0Channel(w_s, dw_s, o, d),
+                                 Layer0Channel(w_s, dw_s, o + 1, d)};
   float acc[3][kCh] = {};
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
-    const float* p = pts + idx_n[k] * 3;
-    const float n0_ = p[0], n1 = p[1], n2 = p[2];
-    const float cr[3] = {h1 * n2 - h2 * n1, h2 * n0_ - h0 * n2,
-                         h0 * n1 - h1 * n0_};
-    const float nd[3] = {n0_ - d0, n1 - d1, n2 - d2};
+    float cr[3], nd[3];
+    layer0_edge(h, d, pts + idx_n[k] * 3, cr, nd);
 #pragma unroll
     for (int v = 0; v < kCh; ++v) {
       float y[3], kd[3], f[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        y[i] = fmaf(cr[i], wc[v], fmaf(nd[i], wl[v], yd[i][v]));
-        kd[i] = fmaf(cr[i], dwc[v], fmaf(nd[i], dwl[v], kdd[i][v]));
-      }
+      ch[v].rows(cr, nd, y, kd);
       vec_act(y, kd, slope, f);
 #pragma unroll
       for (int i = 0; i < 3; ++i) acc[i][v] += f[i];

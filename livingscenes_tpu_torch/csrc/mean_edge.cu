@@ -41,10 +41,9 @@
 //
 // Rounding: D (W a + W b) becomes (D W) a + (D W) b, so results move by
 // about an f32 ulp of the terms against the TPU kernel's association (as
-// attention.cu's did). The backward kernel (mean_edge_bwd.cu) still
-// recomputes the forward per edge through conv_rows and gemm of
-// edge_common.cuh; both are f32 roundings of the same function, and the
-// training checks hold the pair together.
+// attention.cu's did). The backward kernel (mean_edge_bwd.cu) recomputes
+// the same rows with this file's lstpu_mean_products and the same per-edge
+// sums, so an activation takes the same branch in both.
 #include "edge_common.cuh"
 #include "point_products.cuh"
 

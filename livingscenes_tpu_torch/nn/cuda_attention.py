@@ -15,14 +15,12 @@ included, in a first stage of their own (`mean_point_products_cuda`,
 sums and the non-linear work. Under
 autograd each is a `torch.autograd.Function` that saves only its inputs and
 whose backward recomputes the edges, as the TPU kernels' do: the plain VJP
-on the CPU, the backward kernel on the card. The mean edge layer's kernel
-leaves per point the gradient of ydst, which is turned into d_dst and the
-W_r - W_l half of d_W here, as JAX's `_mean_bwd_impl` does outside its
-kernel. The attention backward, like its forward, runs its products once
-per point: its edge pass leaves per point the summed cotangents of the
-rows, and the products by D, W_l and W_r - W_l and the weight gradients
-follow as per-point products and reductions over the points
-(csrc/attention_bwd.cu).
+on the CPU, the backward kernel on the card. Both backward kernels, like
+their forwards, run their products once per point: the edge pass leaves
+per point the summed cotangents of the rows, and the products by D, W_l
+and W_r - W_l and the weight gradients follow as per-point products and
+reductions over the points (csrc/mean_edge_bwd.cu, csrc/attention_bwd.cu,
+through one shared helper of csrc/point_products.cuh).
 """
 from __future__ import annotations
 
@@ -39,7 +37,9 @@ mean_launches = 0  # mean_edge.cu edge-pass launches since last set to 0
 mean_products_launches = 0  # its per-point products' launches (two a call)
 attention_launches = 0  # attention.cu edge-pass launches since last set to 0
 products_launches = 0  # its per-point products' launches (two a call), ditto
-mean_bwd_launches = 0  # mean_edge_bwd.cu launches since last set to 0
+mean_bwd_launches = 0  # mean_edge_bwd.cu edge-pass launches, ditto
+# its per-point rows, products and reductions (five a call), ditto
+mean_bwd_products_launches = 0
 attention_bwd_launches = 0  # attention_bwd.cu edge-pass launches, ditto
 # its per-point products and reductions (five a call), ditto
 attention_bwd_products_launches = 0
@@ -97,6 +97,25 @@ def mean_point_products_plain(src_f, dst_f, W_l, W_delta, D):
     return rows(W_l, src_f), rows(W_delta, dst_f)
 
 
+def _launch_mean_products(src_f, dst_f, W_l, W_delta, D, p_src, p_dst):
+    """lstpu_mean_products (two launches) into p_src, p_dst."""
+    B, Ns, C, _ = src_f.shape
+    Nd, O = dst_f.shape[1], D.shape[0]
+    dev = src_f.device
+    # [W^T | (D W)^T]: the kernel writes the second half
+    w_src = torch.empty((C, 2 * O), dtype=torch.float32, device=dev)
+    w_dst = torch.empty_like(w_src)
+    w_src[:, :O] = W_l.t()
+    w_dst[:, :O] = W_delta.t()
+    d_t = D.t().contiguous()
+    err = _cuda.lib().lstpu_mean_products(
+        src_f.data_ptr(), dst_f.data_ptr(), w_src.data_ptr(), w_dst.data_ptr(),
+        d_t.data_ptr(), p_src.data_ptr(), p_dst.data_ptr(), B, Ns, Nd, C, O,
+        _cuda.stream_ptr(src_f),
+    )
+    _cuda.check(err, "mean_products")
+
+
 def mean_point_products_cuda(src_f, dst_f, W_l, W_delta, D):
     """The per-point products (the first stage of the mean-edge kernel) for
     float32 tensors on the card: src_f (B, Ns, C, 3), dst_f (B, Nd, C, 3),
@@ -114,20 +133,9 @@ def mean_point_products_cuda(src_f, dst_f, W_l, W_delta, D):
         raise ValueError(f"{name}: src (B, Ns, C, 3), dst (B, Nd, C, 3), "
                          "W_l, W_delta (O, C), D (O, O), O a multiple of 4")
     dev = src_f.device
-    # [W^T | (D W)^T]: the kernel writes the second half
-    w_src = torch.empty((C, 2 * O), dtype=torch.float32, device=dev)
-    w_dst = torch.empty_like(w_src)
-    w_src[:, :O] = W_l.t()
-    w_dst[:, :O] = W_delta.t()
-    d_t = D.t().contiguous()
     p_src = torch.empty((B, Ns, 3, 2 * O), dtype=torch.float32, device=dev)
     p_dst = torch.empty((B, Nd, 3, 2 * O), dtype=torch.float32, device=dev)
-    err = _cuda.lib().lstpu_mean_products(
-        src_f.data_ptr(), dst_f.data_ptr(), w_src.data_ptr(), w_dst.data_ptr(),
-        d_t.data_ptr(), p_src.data_ptr(), p_dst.data_ptr(), B, Ns, Nd, C, O,
-        _cuda.stream_ptr(src_f),
-    )
-    _cuda.check(err, name)
+    _launch_mean_products(src_f, dst_f, W_l, W_delta, D, p_src, p_dst)
     mean_products_launches += 2
     return p_src, p_dst
 
@@ -274,10 +282,29 @@ def fused_edge_mean_bwd_plain(src_f, dst_f, idx, W, D, g, neg_slope: float = 0.2
     return d_src, d_dst, d_W, d_D
 
 
+def _bwd_products_inputs(src_f, dst_f, size):
+    """The scratch, output and feature layouts of a backward's linear rest
+    (the three launches after its edge pass): part (splits, size), out
+    (size), src3 and dst3 (components first) and their gradients."""
+    B, Ns, Nd = src_f.shape[0], src_f.shape[1], dst_f.shape[1]
+    dev = src_f.device
+    splits = _cuda.lib().lstpu_edge_bwd_splits(B, Ns, Nd)
+    part = torch.empty((splits, size), dtype=torch.float32, device=dev)
+    out = torch.empty(size, dtype=torch.float32, device=dev)
+    src3 = src_f.transpose(2, 3).contiguous()
+    dst3 = dst_f.transpose(2, 3).contiguous()
+    return part, out, src3, dst3, torch.empty_like(src3), torch.empty_like(dst3)
+
+
 def fused_edge_mean_bwd_cuda(src_f, dst_f, idx, W, D, g, neg_slope: float = 0.2):
-    """The backward kernel, and per point the rest of JAX's `_mean_bwd_impl`:
-    (d_src, d_dst, d_W, d_D) for float32 tensors on the card. O up to 512."""
-    global mean_bwd_launches
+    """The backward kernel: (d_src, d_dst, d_W, d_D) for float32 tensors on
+    the card. O a multiple of 4 up to 512. Six launches
+    (csrc/mean_edge_bwd.cu): the forward's per-point rows again (two), the
+    edge pass (`mean_bwd_launches`), which sums the cotangents of each
+    point's rows, then the products by D, W_l and W_r - W_l and the weight
+    gradients' split reductions (three); the five beside the edge pass
+    count in `mean_bwd_products_launches`."""
+    global mean_bwd_launches, mean_bwd_products_launches
     name = "edge_mean_bwd"
     _cuda.require_cuda(name, src_f, dst_f, W, D, g, dtype=torch.float32)
     _cuda.require_cuda(name, src_f, idx)
@@ -285,34 +312,44 @@ def fused_edge_mean_bwd_cuda(src_f, dst_f, idx, W, D, g, neg_slope: float = 0.2)
     O = W.shape[0]
     if W.shape != (O, 2 * C) or D.shape != (O, O) or g.shape != (B, Nd, O, 3):
         raise ValueError(f"{name}: W (O, 2C), D (O, O), g (B, Nd, O, 3)")
-    W_l = W[:, :C]
+    W_l = W[:, :C].contiguous()
     W_delta = W[:, C:] - W_l
-    y_dst = torch.einsum("oc,bnci->bnio", W_delta, dst_f).contiguous()
-    wl_t = W_l.t().contiguous()
-    d_t = D.t().contiguous()
     idx = idx.to(torch.int32)
-    dev = src_f.device
-    d_src = torch.zeros_like(src_f)
-    d_ydst = torch.empty((B, Nd, 3, O), dtype=torch.float32, device=dev)
     lib = _cuda.lib()
-    size = C * O + O * O
-    rep = torch.zeros((lib.lstpu_wgrad_replicas(), size), dtype=torch.float32,
-                      device=dev)
-    out = torch.empty(size, dtype=torch.float32, device=dev)
+    stream = _cuda.stream_ptr(src_f)
+    n_src = B * Ns
+    # the rows of the source points, then of the destination points: the
+    # products' [Y | Kd], and their cotangents
+    rows = torch.empty((B * (Ns + Nd), 3, 2 * O), dtype=torch.float32,
+                       device=src_f.device)
+    _launch_mean_products(src_f, dst_f, W_l, W_delta, D, rows[:n_src],
+                          rows[n_src:])
+    mean_bwd_products_launches += 2
+    grows = torch.empty_like(rows)
+    grows[:n_src].zero_()  # the sources' rows take atomic sums
     err = lib.lstpu_edge_mean_bwd(
-        src_f.data_ptr(), y_dst.data_ptr(), idx.data_ptr(), wl_t.data_ptr(),
-        W.data_ptr(), d_t.data_ptr(), D.data_ptr(), g.data_ptr(),
-        d_src.data_ptr(), d_ydst.data_ptr(), rep.data_ptr(), out.data_ptr(),
-        B, Ns, Nd, C, O, K, float(neg_slope),
-        _cuda.stream_ptr(src_f),
+        rows.data_ptr(), rows[n_src:].data_ptr(), idx.data_ptr(),
+        g.data_ptr(), grows.data_ptr(), grows[n_src:].data_ptr(), B, Ns, Nd,
+        O, K, float(neg_slope), stream,
     )
     _cuda.check(err, name)
     mean_bwd_launches += 1
-    d_wl_t, d_D = out[:C * O].view(C, O), out[C * O:].view(O, O)
-    d_dst = torch.einsum("oc,bnio->bnci", W_delta, d_ydst)
-    d_W_delta = torch.einsum("bnio,bnci->oc", d_ydst, dst_f)
-    d_W = torch.cat([d_wl_t.t() - d_W_delta, d_W_delta], dim=1)
-    return d_src, d_dst, d_W, d_D
+    part, out, src3, dst3, d_src3, d_dst3 = _bwd_products_inputs(
+        src_f, dst_f, 2 * C * O + O * O)
+    err = lib.lstpu_mean_bwd_products(
+        grows.data_ptr(), rows.data_ptr(), src3.data_ptr(), dst3.data_ptr(),
+        W_l.data_ptr(), W_delta.data_ptr(), D.data_ptr(), d_src3.data_ptr(),
+        d_dst3.data_ptr(), part.data_ptr(), out.data_ptr(), B, Ns, Nd, C, O,
+        stream,
+    )
+    _cuda.check(err, name)
+    mean_bwd_products_launches += 3
+    d_src = d_src3.transpose(2, 3).contiguous()
+    d_dst = d_dst3.transpose(2, 3).contiguous()
+    d_W_l, d_D, d_W_delta = torch.split(out, [C * O, O * O, C * O])
+    d_W_l, d_W_delta = d_W_l.view(O, C), d_W_delta.view(O, C)
+    d_W = torch.cat([d_W_l - d_W_delta, d_W_delta], dim=1)
+    return d_src, d_dst, d_W, d_D.view(O, O)
 
 
 def fused_edge_attention_bwd_plain(src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V,
@@ -372,15 +409,8 @@ def fused_edge_attention_bwd_cuda(src_f, dst_f, idx, q_n, W_K, D_K, W_V, D_V,
     )
     _cuda.check(err, name)
     attention_bwd_launches += 1
-    size = 4 * C * O + 2 * O * O
-    part = torch.empty((lib.lstpu_attention_bwd_splits(B, Ns, Nd), size),
-                       dtype=torch.float32, device=dev)
-    out = torch.empty(size, dtype=torch.float32, device=dev)
-    # the features and their gradients with rows (point, component)
-    src3 = src_f.transpose(2, 3).contiguous()
-    dst3 = dst_f.transpose(2, 3).contiguous()
-    d_src3 = torch.empty_like(src3)
-    d_dst3 = torch.empty_like(dst3)
+    part, out, src3, dst3, d_src3, d_dst3 = _bwd_products_inputs(
+        src_f, dst_f, 4 * C * O + 2 * O * O)
     err = lib.lstpu_attention_bwd_products(
         grows.data_ptr(), rows.data_ptr(), src3.data_ptr(), dst3.data_ptr(),
         W_l.data_ptr(), W_delta.data_ptr(), D_K.data_ptr(), D_V.data_ptr(),

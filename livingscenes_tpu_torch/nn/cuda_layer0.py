@@ -20,7 +20,8 @@ from ..ops.knn import gather_neighbors
 from .vec_layers import leaky_relu, so3_activation
 
 launches = 0  # layer0.cu launches since the count was last set to 0
-bwd_launches = 0  # layer0_bwd.cu launches since the count was last set to 0
+bwd_launches = 0  # layer0_bwd.cu edge-pass launches, ditto
+bwd_fold_launches = 0  # its fold of the per-block partials, ditto
 
 
 def layer0_edge(src_f: torch.Tensor, dst_f: torch.Tensor, idx: torch.Tensor):
@@ -79,8 +80,11 @@ def fused_layer0_edge_mean_bwd_plain(xyz, idx, W, D, g, neg_slope: float = 0.2):
 
 def fused_layer0_edge_mean_bwd_cuda(xyz, idx, W, D, g, neg_slope: float = 0.2):
     """The backward kernel: (d_xyz, d_W, d_D) for float32 tensors on the
-    card. O up to 512."""
-    global bwd_launches
+    card. O a multiple of 4 up to 512. Two launches (csrc/layer0_bwd.cu):
+    the edge pass (`bwd_launches`), which leaves per block its partial sums
+    of d_W's and d_D's factors, and their fold in a fixed order
+    (`bwd_fold_launches`; d_W and d_D repeat bit for bit)."""
+    global bwd_launches, bwd_fold_launches
     name = "layer0_edge_mean_bwd"
     _cuda.require_cuda(name, xyz, W, D, g, dtype=torch.float32)
     _cuda.require_cuda(name, xyz, idx)
@@ -92,21 +96,19 @@ def fused_layer0_edge_mean_bwd_cuda(xyz, idx, W, D, g, neg_slope: float = 0.2):
         raise ValueError(f"{name}: xyz (B, N, 3), idx (B, N, K), W (O, 3), "
                          "D (O, O), g (B, N, O, 3)")
     idx = idx.to(torch.int32)
-    d_t = D.t().contiguous()
     d_xyz = torch.zeros_like(xyz)
     lib = _cuda.lib()
-    size = O * 3 + O * O
-    rep = torch.zeros((lib.lstpu_wgrad_replicas(), size), dtype=torch.float32,
-                      device=xyz.device)
-    out = torch.empty(size, dtype=torch.float32, device=xyz.device)
+    part = torch.empty((lib.lstpu_layer0_bwd_blocks(B, N, O), 6 * O),
+                       dtype=torch.float32, device=xyz.device)
+    out = torch.empty(O * 3 + O * O, dtype=torch.float32, device=xyz.device)
     err = lib.lstpu_layer0_edge_mean_bwd(
-        xyz.data_ptr(), idx.data_ptr(), W.data_ptr(), d_t.data_ptr(),
-        D.data_ptr(), g.data_ptr(), d_xyz.data_ptr(), rep.data_ptr(),
-        out.data_ptr(), B, N, O, K, float(neg_slope),
-        _cuda.stream_ptr(xyz),
+        xyz.data_ptr(), idx.data_ptr(), W.data_ptr(), D.data_ptr(),
+        g.data_ptr(), d_xyz.data_ptr(), part.data_ptr(), out.data_ptr(),
+        B, N, O, K, float(neg_slope), _cuda.stream_ptr(xyz),
     )
     _cuda.check(err, name)
     bwd_launches += 1
+    bwd_fold_launches += 1
     return d_xyz, out[:O * 3].view(O, 3), out[O * 3:].view(O, O)
 
 

@@ -56,11 +56,13 @@ _SIGNATURES = {
     "lstpu_sinkhorn_plan": [_I] * 3 + [_P],
     "lstpu_sinkhorn": [_P] * 8 + [_I] * 4 + [_P],
     "lstpu_sinkhorn_bwd": [_P] * 12 + [_F] + [_I] * 3 + [_P],
-    "lstpu_layer0_edge_mean_bwd": [_P] * 9 + [_I] * 4 + [_F, _P],
-    "lstpu_edge_mean_bwd": [_P] * 12 + [_I] * 6 + [_F, _P],
+    "lstpu_layer0_edge_mean_bwd": [_P] * 8 + [_I] * 4 + [_F, _P],
+    "lstpu_layer0_bwd_blocks": [_I] * 3,
+    "lstpu_edge_mean_bwd": [_P] * 6 + [_I] * 5 + [_F, _P],
+    "lstpu_mean_bwd_products": [_P] * 11 + [_I] * 5 + [_P],
     "lstpu_edge_attention_bwd": [_P] * 8 + [_I] * 6 + [_F, _P],
     "lstpu_attention_bwd_products": [_P] * 12 + [_I] * 5 + [_P],
-    "lstpu_attention_bwd_splits": [_I] * 3,
+    "lstpu_edge_bwd_splits": [_I] * 3,
     "lstpu_fps_tail_points": [_I, _I],
     "lstpu_knn_max_k": [],
     "lstpu_icp_stats_block": [],
@@ -70,7 +72,6 @@ _SIGNATURES = {
     "lstpu_scale_max_top": [],
     "lstpu_sinkhorn_bwd_rows": [],
     "lstpu_sinkhorn_max_schedule": [],
-    "lstpu_wgrad_replicas": [],
 }
 
 

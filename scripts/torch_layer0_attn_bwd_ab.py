@@ -101,7 +101,10 @@ def stages(torch, cuda_attention, _cuda, args, g):
     d_qn = torch.empty((Bn, Nd, O, 3), dtype=torch.float32, device="cuda")
     idx32 = idx.to(torch.int32)
     size = 4 * C * O + 2 * O * O
-    part = torch.empty((lib.lstpu_attention_bwd_splits(Bn, Ns, Nd), size),
+    # the entry's name before the mean-edge backward shared it
+    splits_of = getattr(lib, "lstpu_edge_bwd_splits", None) or getattr(
+        lib, "lstpu_attention_bwd_splits")
+    part = torch.empty((splits_of(Bn, Ns, Nd), size),
                        dtype=torch.float32, device="cuda")
     out = torch.empty(size, dtype=torch.float32, device="cuda")
     src3 = src.transpose(2, 3).contiguous()
@@ -129,7 +132,7 @@ def stages(torch, cuda_attention, _cuda, args, g):
                 src, dst, W_l, W_delta, D_K, D_V), 5, 5),
         "edge_pass_graph_ms": graph_ms(torch, edges, 5, 5),
         "linear_rest_graph_ms": graph_ms(torch, rest, 5, 5),
-        "splits": lib.lstpu_attention_bwd_splits(Bn, Ns, Nd)}
+        "splits": splits_of(Bn, Ns, Nd)}
 
 
 def time_attention_bwd(torch, cuda_attention, _cuda, f32, rng):

@@ -27,16 +27,16 @@ and at small ragged ones.
 
 The FPS, kNN, kNN + scale and Sinkhorn kernels' cases and those of the
 backward kernels are in files of their own (tests/test_torch_port_kernels_
-emulated_fps.py, _knn.py, _knn_cap.py, _sinkhorn.py, _sinkhorn_stream.py
-and _bwd.py), which take the stand-in and the `on_host` fixture from here,
+emulated_fps.py, _knn.py, _knn_cap.py, _sinkhorn.py, _sinkhorn_stream.py,
+_bwd.py and _edge_bwd.py), which take the stand-in and the `on_host` fixture from here,
 so that no one file sets the length of a run of the tests over several
 workers.
 
 Tolerances: ICP statistics rtol 1e-4; the fused edge layers rtol 2e-4 plus
 atol 2e-5 of the largest magnitude, as on the card, and their backward
 kernels against autograd of the plain versions the same (the kernels add
-the scatter and the weight gradients with atomics, in no fixed order); the
-scale statistic rtol 1e-6.
+the sources' gradients with atomics, in no fixed order); the scale
+statistic rtol 1e-6.
 """
 import ctypes
 import re

@@ -10,8 +10,9 @@ shows and what it cannot. Apart from the forward kernels' cases so that no
 one file sets the length of a run of the tests over several workers.
 
 Tolerances: rtol 2e-4 plus atol 2e-5 of the largest magnitude, as on the
-card (the kernels add the scatter, and rows 12-13 the weight gradients,
-with atomics, in no fixed order).
+card (the kernels add the sources' gradients with atomics, in no fixed
+order). The new designs' launches, products and wide cases of rows 12-13
+are in tests/test_torch_port_kernels_emulated_edge_bwd.py.
 """
 import numpy as np
 import pytest
@@ -128,7 +129,7 @@ def test_attention_bwd_products_kernel(on_host, B, Ns, Nd, C, O):
     W_l, W_delta = f32(rng, 2 * O, C, scale=0.2), f32(rng, 2 * O, C, scale=0.2)
     D_K, D_V = f32(rng, O, O, scale=0.2), f32(rng, O, O, scale=0.2)
     lib = _cuda.lib()
-    splits = lib.lstpu_attention_bwd_splits(B, Ns, Nd)
+    splits = lib.lstpu_edge_bwd_splits(B, Ns, Nd)
     assert splits == max(1, -(-3 * n_all // 1024))
     size = 4 * C * O + 2 * O * O
     part = torch.full((splits, size), float("nan"))
