@@ -37,6 +37,25 @@
    versions to compare. Then runs the default-config pipeline
    (pallas_attention=False) on the same scenes with the same checks and
    one timed call, and holds the two configurations against each other.
+   Then the reconstruction leg (phase_recon): PipelineConfig(encode_fps=
+   True, recon=True) with every recon default (res0 32 -> 129^3 grids,
+   packsort, dedup, host merge, f32) on 2 scene pairs x 8 procedural shapes
+   x 4096 points with the trained checkpoint and the fused encoder: a
+   warm-up call and 3 timed calls (the first with the launch counts held to
+   the fused main path's and every plain version forbidden), the stages'
+   host ms and, under torch.profiler, device ms and launches (the grid
+   stage split into level-0 decode, selection, refine decodes and
+   scatter), peak memory, the decoder's f32 flops and their share of 67
+   TFLOP/s, extract_scene_meshes with its stats (at least 90 % of the
+   matched instances must give a mesh), scene-pairs/s with and without
+   the host stage, scene 0's first two matched instances against the CPU
+   from the same codes (overflow equal, selection equal or each difference
+   witnessed by a corner near the threshold, values within 1e-4 of the
+   grid's magnitude, unsimplified meshes within 0.5 voxel), and one
+   recon_bf16 call whose unsimplified meshes must lie within half a voxel
+   of a 33^3 grid of the f32 ones (tests/test_recon.py's bound as a
+   length: 2 voxels at 129^3), with that test's own check, 33^3 grids
+   within 0.5 voxel, run on the card from the same codes.
 5. The scale kernel: against its plain version at 64 x 1000 points (one
    cloud a lattice full of exact ties), then one encode of 64 x 1000 points
    with pallas_attention=True (N no multiple of 256: the scale kernel and
@@ -55,7 +74,9 @@
    logged), also past the N + M <= 8192 they once refused (2 x 6144 x 4096
    and 1 x 12288 x 8192, the sides in tiles of 4096); one timed call at
    n_steps=400 with the launch counts checked (801 Sinkhorn forwards, 800
-   backwards) and every plain version forbidden; stage times; scene 0 at
+   backwards) and every plain version forbidden; stage times; one call and
+   the refine stage with refine_bf16 (R and t finite, ms a step and the
+   largest R deviation against f32); scene 0 at
    n_steps=10 against the CPU (objects whose clouds' kNN graphs or FPS
    picks differ between the two are named, their first difference must be
    a near-tie by the f64 witness, and they are held to 5e-2 after the
@@ -85,6 +106,8 @@ Any failed check raises, and the script exits non-zero.
 from __future__ import annotations
 
 import argparse
+import bisect
+import dataclasses
 import json
 import os
 import subprocess
@@ -110,6 +133,13 @@ N_PCL = 1024
 B = N_SCENES * N_OBJ  # instances per encoder call
 ICP_ITERS = 100
 N_RAGGED = 1000  # a cloud size that is no multiple of 256
+RECON_SCENES = 2  # scene pairs of the recon leg: bench.py:405's 16 grids
+RECON_TIMED = 3  # timed recon calls after one warm-up
+RECON_CPU_INSTANCES = 2  # scene 0's matched instances held against the CPU
+RECON_SAMPLES = 20000  # surface samples a mesh for the chamfer
+# recon/grid.py's profiler ranges
+RECON_RANGES = ("recon.decode_level0", "recon.select", "recon.decode_refine",
+                "recon.scatter")
 REFINE_STEPS = 400
 REFINE_WARMUP_STEPS = 3
 REFINE_CPU_STEPS = 10  # steps of the card-against-CPU refinement check
@@ -1634,6 +1664,436 @@ def phase_pipeline(torch, report, state, scenes, profile: bool):
     return fused["launches"]
 
 
+def make_shape_scenes(rng, n_scenes, n_pts=N_FULL):
+    """Scene pairs of procedural shapes (bench.py:139 make_shape_scenes, in
+    numpy, with the port's train/data.py SyntheticShapeDataset): with the
+    trained checkpoint their codes have real surfaces. The rescan moves
+    every object by its own rigid transform and permutes the objects."""
+    from scipy.spatial.transform import Rotation
+
+    from livingscenes_tpu_torch.train.data import SyntheticShapeDataset
+
+    ds = SyntheticShapeDataset(n_items=1, n_pcl=n_pts, ram_cache=False)
+    objs = np.zeros((n_scenes, N_OBJ, n_pts, 3), np.float32)
+    for s in range(n_scenes):
+        for o in range(N_OBJ):
+            objs[s, o] = ds._surface_points(ds._shape_sdf(rng), rng, n_pts)
+    offsets = rng.uniform(-3, 3, (n_scenes, N_OBJ, 1, 3)).astype(np.float32)
+    ref = objs + offsets
+    Rm = Rotation.random(n_scenes * N_OBJ, random_state=1).as_matrix()
+    Rm = Rm.reshape(n_scenes, N_OBJ, 3, 3).astype(np.float32)
+    tm = rng.normal(size=(n_scenes, N_OBJ, 1, 3)).astype(np.float32) * 0.5
+    rescan = np.einsum("soij,sonj->soni", Rm, ref) + tm
+    perm = np.stack([rng.permutation(N_OBJ) for _ in range(n_scenes)])
+    rescan = np.stack([rescan[s][perm[s]] for s in range(n_scenes)])
+    return ref, rescan.astype(np.float32)
+
+
+def decoder_flops(model, cfg, batch: int) -> dict:
+    """The decoder MLP's f32 flops of one recon call: 2 x in x out a query
+    and layer (from the layer widths), times the queries each level decodes
+    for each of `batch` instances: (res0 + 1)^3, then cap = min(cap_factor
+    x n^2, n^3) a refine level, whatever the content."""
+    per_query = 0
+    for lin in model.decoder.lin:
+        w = lin.v if hasattr(lin, "v") else lin.kernel
+        per_query += 2 * w.shape[0] * w.shape[1]
+    res = cfg.recon_resolution0
+    queries = [(res + 1) ** 3]
+    for _ in range(cfg.recon_upsampling_steps):
+        res *= 2
+        n = res + 1
+        queries.append(min(cfg.recon_cap_factor * n * n, n ** 3))
+    return {"per_query": per_query, "queries_per_instance": queries,
+            "per_call": per_query * sum(queries) * batch}
+
+
+def mesh_chamfer(a, b) -> float:
+    """Symmetric mean surface distance of two meshes: RECON_SAMPLES points
+    drawn on each (seed 0), each side's mean distance to the other's
+    samples by scipy's cKDTree, averaged."""
+    from scipy.spatial import cKDTree
+
+    pa = a.sample_surface(RECON_SAMPLES, seed=0)
+    pb = b.sample_surface(RECON_SAMPLES, seed=0)
+    return 0.5 * float(cKDTree(pb).query(pa)[0].mean()
+                       + cKDTree(pa).query(pb)[0].mean())
+
+
+class record_recon_codes:
+    """While active, the canonical codes that the pipeline's recon leg hands
+    to the grid evaluation are kept (detached copies): codes[i] of call i."""
+
+    def __enter__(self):
+        from livingscenes_tpu_torch.solver import pipeline as pl
+
+        self.pl, self.real, self.codes = pl, pl.batched_hierarchical_grid_values, []
+
+        def keep(logits_fn, codes, **kw):
+            self.codes.append({k: v.detach().clone() for k, v in codes.items()})
+            return self.real(logits_fn, codes, **kw)
+
+        pl.batched_hierarchical_grid_values = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.pl.batched_hierarchical_grid_values = self.real
+
+
+def selection_witness(card_pre, cpu_pre, flat_idx, thr, tol):
+    """Why fine point `flat_idx` of the last level is selected on one side
+    only: a corner of the level-1 grid (every second point of the premerge
+    grid) within two cells of it, or of the level-0 grid (every fourth)
+    within three, whose side of the threshold differs between the card and
+    the CPU and whose value lies within `tol` of the threshold on both (a
+    cell's activity, and so the selection near it, follows its corners'
+    sides). None if there is no such corner."""
+    n = card_pre.shape[0]
+    pos = np.array(np.unravel_index(int(flat_idx), (n, n, n)))
+    for level, step, reach in ((1, 2, 2), (0, 4, 3)):
+        a = card_pre[::step, ::step, ::step]
+        b = cpu_pre[::step, ::step, ::step]
+        c = pos // step
+        lo = np.maximum(c - reach, 0)
+        box = tuple(slice(l, h) for l, h in zip(lo, c + reach + 1))
+        hit = (((a[box] > thr) != (b[box] > thr))
+               & (np.abs(a[box] - thr) <= tol) & (np.abs(b[box] - thr) <= tol))
+        if hit.any():
+            corner = np.argwhere(hit)[0]
+            at = tuple(corner + lo)
+            return {"point": pos.tolist(), "level": level,
+                    "corner": [int(x) for x in at],
+                    "card": float(a[at]), "cpu": float(b[at]), "threshold": thr}
+    return None
+
+
+def recon_cpu_check(torch, state, out, codes, cfg) -> dict:
+    """Scene 0's first RECON_CPU_INSTANCES matched instances again on the
+    CPU at the production resolution, from the card's canonical codes
+    copied to the host: grid_overflow equal; the last level's selected
+    points equal, or each point selected on one side only backed by a
+    corner near the threshold (selection_witness); the refined values at
+    the points both selected within 1e-4 of the grid's largest magnitude;
+    the two meshes within 0.5 voxel (mesh_chamfer, in the canonical
+    frame, unsimplified: the quadric simplification's greedy order turns
+    a 1e-6 change of the grid into about 0.3 voxel, and the bound is
+    tests/test_recon.py's, set on unsimplified meshes)."""
+    from livingscenes_tpu_torch.models.shape_prior import (
+        ShapePrior, ShapePriorConfig)
+    from livingscenes_tpu_torch.recon.extractor import (
+        MeshExtractorConfig, extract_mesh_from_grid)
+    from livingscenes_tpu_torch.recon.grid import (
+        apply_final_merge, batched_hierarchical_grid_values)
+
+    m0 = out["matches0"][0].cpu().numpy()
+    picked = [j for j in range(N_OBJ) if m0[j] >= 0][:RECON_CPU_INSTANCES]
+    cpu_model = ShapePrior(ShapePriorConfig(pallas_attention=True), device="cpu")
+    cpu_model.load_state_dict(state)
+    cpu_codes = {k: v[picked].cpu() for k, v in codes.items()}
+    thr = float(np.log(cfg.recon_threshold) - np.log(1.0 - cfg.recon_threshold))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        pre, overflow, fidx, fvals = (x.numpy() for x in batched_hierarchical_grid_values(
+            lambda q, c: cpu_model.occupancy_logits(q, c), cpu_codes,
+            resolution0=cfg.recon_resolution0,
+            upsampling_steps=cfg.recon_upsampling_steps, threshold=thr,
+            box_size=cfg.recon_box_size, chunk_size=cfg.recon_chunk,
+            refine_cap_factor=cfg.recon_cap_factor,
+            select_mode=cfg.recon_select_mode, dedup=cfg.recon_dedup,
+            final_merge="host"))
+    cpu_s = time.perf_counter() - t0
+    ext = MeshExtractorConfig(simplify_nfaces=None)
+    voxel = cfg.recon_box_size / (cfg.recon_resolution0 * 2 ** cfg.recon_upsampling_steps)
+    rows = []
+    for i, j in enumerate(picked):
+        c_pre = out["grids_premerge"][0, j].cpu().numpy()
+        c_idx = out["grid_fidx"][0, j].cpu().numpy()
+        c_val = out["grid_fvals"][0, j].cpu().numpy()
+        c_over = out["grid_overflow"][0, j].cpu().numpy()
+        big = c_pre.size
+        if not np.array_equal(c_over, overflow[i]):
+            raise AssertionError(f"recon: instance {j}: grid_overflow card "
+                                 f"{c_over.tolist()} vs cpu {overflow[i].tolist()}")
+        card_grid = apply_final_merge(c_pre, c_idx, c_val)
+        cpu_grid = apply_final_merge(pre[i], fidx[i], fvals[i])
+        scale = float(np.abs(card_grid).max())
+        tol = 1e-4 * scale
+        sel_card = c_idx[c_idx < big]
+        sel_cpu = fidx[i][fidx[i] < big]
+        only = np.setxor1d(sel_card, sel_cpu)
+        witnesses = []
+        for p in only:
+            w = selection_witness(c_pre, pre[i], p, thr, tol)
+            if w is None:
+                raise AssertionError(
+                    f"recon: instance {j}: point {int(p)} is selected on one side "
+                    "only and no corner near the threshold explains it")
+            witnesses.append(w)
+        both, ia, ib = np.intersect1d(c_idx, fidx[i], return_indices=True)
+        keep = both < big
+        dval = float(np.abs(c_val[ia[keep]] - fvals[i][ib[keep]]).max())
+        if dval > tol:
+            raise AssertionError(f"recon: instance {j}: refined values differ from "
+                                 f"the CPU by {dval} (bound {tol})")
+        mesh_card = extract_mesh_from_grid(card_grid, ext)
+        mesh_cpu = extract_mesh_from_grid(cpu_grid, ext)
+        if mesh_card.is_empty or mesh_cpu.is_empty:
+            raise AssertionError(f"recon: instance {j}: an empty mesh "
+                                 f"(card {mesh_card.is_empty}, cpu {mesh_cpu.is_empty})")
+        ch = mesh_chamfer(mesh_card, mesh_cpu)
+        if ch >= 0.5 * voxel:
+            raise AssertionError(f"recon: instance {j}: chamfer to the CPU mesh "
+                                 f"{ch} >= half a voxel {0.5 * voxel}")
+        rows.append({"instance": j, "overflow": c_over.tolist(),
+                     "selected": int(len(sel_card)), "selected_one_side": int(len(only)),
+                     "witness": witnesses[:4], "max_abs_dval": dval,
+                     "value_bound": tol, "chamfer": ch, "voxel": voxel,
+                     "max_abs_dgrid": float(np.abs(card_grid - cpu_grid).max())})
+        log(f"recon: card vs cpu, instance {j}: overflow {c_over.tolist()} equal, "
+            f"{len(sel_card)} selected, {len(only)} on one side only"
+            + (f" (first witness {witnesses[0]})" if witnesses else "")
+            + f", max|dval| {dval:.3g} (bound {tol:.3g}), chamfer {ch:.3g} "
+            f"({ch / voxel:.3f} voxel)")
+    return {"instances": rows, "cpu_s": cpu_s}
+
+
+def recon_meshes(torch, out):
+    """extract_scene_meshes(..., with_stats=True) timed on the host, with
+    its stats summed up; fails as bench.py:501-508 does when fewer than
+    90 % of the matched instances give a non-empty mesh."""
+    from livingscenes_tpu_torch.recon.extractor import MeshExtractorConfig
+    from livingscenes_tpu_torch.solver.pipeline import extract_scene_meshes
+
+    t0 = time.perf_counter()
+    meshes, stats = extract_scene_meshes(out, MeshExtractorConfig(), with_stats=True)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    n_matched = len(stats)
+    n_nonempty = sum(not st["empty"] for st in stats)
+    if n_matched == 0 or n_nonempty < 0.9 * n_matched:
+        raise AssertionError(f"recon leg degenerate: only {n_nonempty}/{n_matched} "
+                             "matched instances gave a non-empty mesh")
+
+    def col(key):
+        return [st.get(key, 0) for st in stats]
+
+    summary = {"host_ms": host_ms, "n_matched": n_matched, "n_nonempty": n_nonempty,
+               "workers": min(n_matched, os.cpu_count() or 4),
+               **{f"{k}_mean": float(np.mean(col(k)))
+                  for k in ("total_ms", "iso_ms", "simplify_ms", "faces_raw", "faces")},
+               "faces_raw_max": int(max(col("faces_raw"))),
+               "grid_overflow_max": int(out["grid_overflow"].max())}
+    return meshes, summary
+
+
+def bf16_chamfers(meshes32, meshes16, recon_s, voxel) -> list:
+    """mesh_chamfer of each f32 mesh to its recon_bf16 twin, in voxels of
+    the grid (the meshes carry their code's scale, so the voxel does)."""
+    out = []
+    for s, row in enumerate(meshes32):
+        for o, a in enumerate(row):
+            if a is None or a.is_empty:
+                continue
+            b = meshes16[s][o]
+            if b is None or b.is_empty:
+                raise AssertionError(f"recon: recon_bf16 mesh {s},{o} is empty")
+            out.append(mesh_chamfer(a, b) / (voxel * float(recon_s[s, o])))
+    return out
+
+
+def bf16_coarse_check(torch, model, codes, cfg) -> list:
+    """tests/test_recon.py test_bf16_grid_mesh_accuracy on the card: the
+    grids of the canonical `codes` at res0 16 with one step (33^3), f32
+    and bfloat16, meshed unsimplified; each pair's mesh_chamfer in voxels
+    of 33^3."""
+    from livingscenes_tpu_torch.recon.extractor import (
+        MeshExtractorConfig, extract_mesh_from_grid)
+    from livingscenes_tpu_torch.recon.grid import batched_hierarchical_grid_values
+
+    ext = MeshExtractorConfig(resolution0=16, upsampling_steps=1, simplify_nfaces=None)
+    grids = []
+    with torch.inference_mode():
+        for mm in (None, torch.bfloat16):
+            g = batched_hierarchical_grid_values(
+                lambda q, c: model.occupancy_logits(q, c, matmul_dtype=mm), codes,
+                resolution0=16, upsampling_steps=1, threshold=ext.logit_threshold,
+                box_size=cfg.recon_box_size, chunk_size=cfg.recon_chunk,
+                refine_cap_factor=cfg.recon_cap_factor)[0]
+            grids.append(g.float().cpu().numpy())
+    voxel = cfg.recon_box_size / 32
+    out = []
+    for a, b in zip(*grids):
+        ma, mb = extract_mesh_from_grid(a, ext), extract_mesh_from_grid(b, ext)
+        if ma.is_empty != mb.is_empty:
+            raise AssertionError("recon: a 33^3 recon_bf16 mesh is empty and its "
+                                 "f32 twin is not, or the other way")
+        if not ma.is_empty:
+            out.append(mesh_chamfer(ma, mb) / voxel)
+    return out
+
+
+def phase_recon(torch, report, state, want: dict):
+    """The reconstruction leg at production resolution:
+    PipelineConfig(encode_fps=True, recon=True) with every recon default
+    (res0 32 -> 129^3, packsort, dedup, host merge, f32) on RECON_SCENES
+    scene pairs x 8 procedural shapes x 4096 points with the trained
+    checkpoint and the fused encoder. A warm-up call, RECON_TIMED timed
+    calls (the first between setting the launch counts to 0 and reading
+    them, held to the fused main path's `want`, every plain version
+    forbidden), peak memory, the stages (host ms with a sync each, then
+    device ms and launches under torch.profiler, the grid stage split by
+    grid.py's ranges), the decoder's flops and their rate, the host
+    meshing, scene 0 against the CPU (recon_cpu_check), and one
+    recon_bf16 call, its unsimplified meshes (see recon_cpu_check) held
+    to tests/test_recon.py's bound, half a voxel of its 33^3 grid, as a
+    length: the bfloat16 decode moves the surface by a length, not by a
+    share of a voxel (with the r5 checkpoint on an NVIDIA H100, 0.13 of a
+    33^3 voxel on average and 0.57 of a 129^3 one); that test's own check
+    at 33^3 runs beside it (bf16_coarse_check). The host meshing's
+    library is built before it is timed."""
+    from livingscenes_tpu_torch.models.shape_prior import (
+        ShapePrior, ShapePriorConfig)
+    from livingscenes_tpu_torch.recon.extractor import MeshExtractorConfig
+    from livingscenes_tpu_torch.solver.pipeline import (
+        PipelineConfig, build_scene_pair_pipeline, extract_scene_meshes)
+
+    tag = "recon"
+    S = RECON_SCENES
+    model = ShapePrior(ShapePriorConfig(pallas_attention=True), device="cuda")
+    model.load_state_dict(state)
+    cfg = PipelineConfig(encode_fps=True, recon=True)
+    ref_np, res_np = make_shape_scenes(np.random.default_rng(5), S)
+    ref, res = (torch.as_tensor(a, device="cuda") for a in (ref_np, res_np))
+    mask = torch.ones(ref.shape[:3], dtype=torch.bool, device="cuda")
+    pipe = build_scene_pair_pipeline(model, cfg)
+
+    pipe(ref, res, mask, mask)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def one_call():
+        t0 = time.perf_counter()
+        out = pipe(ref, res, mask, mask)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with forbid_plain(), record_recon_codes() as rec:
+        (out, first_ms), launches = counted(one_call)
+    launches = {k: v for k, v in launches.items() if v or k in want}
+    log(f"{tag}: pipeline launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{tag}: launch counts {launches}, expected {want}")
+    samples = [first_ms] + [one_call()[1] for _ in range(RECON_TIMED - 1)]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    call_ms = float(np.median(samples))
+    n = cfg.recon_resolution0 * 2 ** cfg.recon_upsampling_steps + 1
+    for key, shape in (("grids_premerge", (S, N_OBJ, n, n, n)),
+                       ("grid_overflow", (S, N_OBJ, cfg.recon_upsampling_steps))):
+        if tuple(out[key].shape) != shape:
+            raise AssertionError(f"{tag}: {key} has shape {tuple(out[key].shape)}")
+    for key in ("grids_premerge", "grid_fvals", "recon_s", "recon_t", "R", "t"):
+        if not bool(torch.isfinite(out[key]).all()):
+            raise AssertionError(f"{tag}: non-finite {key}")
+    m0 = out["matches0"]
+    for s in range(S):
+        if sorted(m0[s].tolist()) != list(range(N_OBJ)):
+            raise AssertionError(f"{tag}: scene {s}: matches0 {m0[s].tolist()} "
+                                 "is not a permutation")
+
+    stages = stage_times(torch, model, ref, res, mask, recon=cfg)
+    prof = stage_times(torch, model, ref, res, mask, profile=True, recon=cfg)
+    flops = decoder_flops(model, cfg, S * N_OBJ)
+    grid_dev = prof["grid"]["device_ms"]
+    if not grid_dev:
+        raise AssertionError(f"{tag}: the profiler saw no device time in the grid stage")
+    rate = {"tflops_per_s_call": flops["per_call"] / (call_ms / 1e3) / 1e12,
+            "tflops_per_s_grid_device": flops["per_call"] / (grid_dev / 1e3) / 1e12}
+    rate["share_of_67_call"] = rate["tflops_per_s_call"] * 1e12 / PEAK_F32_FLOPS
+    rate["share_of_67_grid_device"] = rate["tflops_per_s_grid_device"] * 1e12 / PEAK_F32_FLOPS
+    log(f"{tag}: pipeline {S}x{N_OBJ}x{N_FULL} with recon: median {call_ms:.1f} ms a "
+        f"call over {len(samples)} calls ({', '.join(f'{x:.1f}' for x in samples)}), "
+        f"peak memory {peak_gb:.2f} GB; stages (host ms with sync) "
+        + json.dumps({k: round(v, 2) for k, v in stages.items()}))
+    log(f"{tag}: stages on the card: "
+        + "; ".join(f"{k} device {v['device_ms']:.2f} ms of wall {v['wall_ms']:.2f} "
+                    f"({v['busy']:.1%} busy), {v['kernels']} launches"
+                    for k, v in prof.items()))
+    ranges = prof["grid"]["ranges"]
+    rest = {"device_ms": grid_dev - sum(v["device_ms"] for v in ranges.values()),
+            "launches": prof["grid"]["kernels"] - sum(v["launches"] for v in ranges.values())}
+    if rest["launches"] < 0:
+        raise AssertionError(f"{tag}: the grid ranges hold more launches than the stage")
+    prof["grid"]["outside_ranges"] = rest
+    log(f"{tag}: grid ranges (device ms, launches): "
+        + "; ".join(f"{k} {v['device_ms']:.2f} ms x{v['launches']}"
+                    for k, v in ranges.items())
+        + f"; outside them (the code transport, the chunks' concatenation) "
+        f"{rest['device_ms']:.2f} ms x{rest['launches']}")
+    log(f"{tag}: decoder {flops['per_call'] / 1e12:.2f} TFLOP a call "
+        f"({flops['per_query'] / 1e6:.3f} MFLOP a query, queries a level "
+        f"{flops['queries_per_instance']} x {S * N_OBJ} instances): "
+        f"{rate['tflops_per_s_grid_device']:.2f} TFLOP/s over the grid stage's "
+        f"device time ({rate['share_of_67_grid_device']:.1%} of 67), "
+        f"{rate['tflops_per_s_call']:.2f} over the call")
+
+    from livingscenes_tpu_torch.native import bindings
+
+    t0 = time.perf_counter()
+    bindings.get_lib()  # set-up: the host meshing library's g++ build
+    native_build_s = time.perf_counter() - t0
+    meshes, mesh_stats = recon_meshes(torch, out)
+    mesh_stats["library_build_s"] = native_build_s
+    host_s = mesh_stats["host_ms"] / 1e3
+    pairs = {"device_only": S / (call_ms / 1e3),
+             "with_host_meshing": S / (call_ms / 1e3 + host_s)}
+    log(f"{tag}: host meshing {json.dumps({k: round(v, 2) if isinstance(v, float) else v for k, v in mesh_stats.items()})}; "
+        f"scene-pairs/s {pairs['device_only']:.4f} without the host stage, "
+        f"{pairs['with_host_meshing']:.4f} with it")
+
+    cpu_check = recon_cpu_check(torch, state, out, rec.codes[0], cfg)
+
+    # recon_bf16: one warm-up and one timed call, meshes against f32
+    pipe16 = build_scene_pair_pipeline(
+        model, dataclasses.replace(cfg, recon_bf16=True))
+    pipe16(ref, res, mask, mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out16 = pipe16(ref, res, mask, mask)
+    torch.cuda.synchronize()
+    bf16_ms = (time.perf_counter() - t0) * 1e3
+    # unsimplified, as in recon_cpu_check
+    raw = MeshExtractorConfig(simplify_nfaces=None)
+    fine = bf16_chamfers(extract_scene_meshes(out, raw), extract_scene_meshes(out16, raw),
+                         out["recon_s"], cfg.recon_box_size / (n - 1))
+    # the repo's own check (tests/test_recon.py test_bf16_grid_mesh_accuracy):
+    # res0 16 with one step, 33^3, from the same canonical codes
+    coarse = bf16_coarse_check(torch, model, rec.codes[0], cfg)
+    # the bound: half a voxel of the 33^3 grid that tests/test_recon.py sets
+    # it at, in length; in voxels of the finer grid that is 0.5 x 128 / 32
+    bound_fine = 0.5 * (n - 1) / 32
+    log(f"{tag}: recon_bf16 call {bf16_ms:.1f} ms (f32 {call_ms:.1f}); chamfer to the "
+        f"f32 meshes at {n}^3 up to {max(fine):.4f} voxel (mean {np.mean(fine):.4f}, "
+        f"each: {', '.join(f'{r:.3f}' for r in fine)}; bound {bound_fine} voxel, "
+        f"half a 33^3 voxel); at 33^3 up to {max(coarse):.4f} voxel (mean "
+        f"{np.mean(coarse):.4f}; bound 0.5)")
+    if max(fine) >= bound_fine or max(coarse) >= 0.5:
+        raise AssertionError(f"{tag}: recon_bf16 meshes up to {max(fine):.3f} voxel "
+                             f"at {n}^3 and {max(coarse):.3f} at 33^3 from the f32 ones")
+
+    report["recon"] = {
+        "scenes": S, "objects": N_OBJ, "points": N_FULL,
+        "config": {k: getattr(cfg, k) for k in (
+            "recon_resolution0", "recon_upsampling_steps", "recon_cap_factor",
+            "recon_select_mode", "recon_dedup", "recon_final_merge", "recon_chunk")},
+        "ms_per_call": call_ms, "call_ms_samples": samples, "peak_mem_gb": peak_gb,
+        "launches": launches, "stages_ms": stages, "stages_device": prof,
+        "decoder_flops": flops, **rate, "host_meshing": mesh_stats,
+        "scene_pairs_per_s": pairs, "cpu_check": cpu_check,
+        "bf16": {"ms_per_call": bf16_ms, "chamfer_voxels": fine,
+                 "max_chamfer_voxels": max(fine), "bound_voxels": bound_fine,
+                 "chamfer_voxels_33": coarse},
+    }
+
+
 class record_graphs:
     """While active, the kNN graphs and FPS picks the encoder builds
     (vec_dgcnn_attn's knn_auto and fps_auto, and the fused front end's
@@ -2272,17 +2732,40 @@ def phase_optim(torch, report, state, profile: bool):
         part = (m.clamp_min(0) + torch.arange(S, device=m.device)[:, None] * O).reshape(-1)
         pc2 = flat_res[part]
         c2 = {k: v[part] for k, v in codes[1].items()}
-        timed("refine", lambda: solve_pairwise_registration(
+        R_refine = timed("refine", lambda: solve_pairwise_registration(
             model, flat_ref, pc2, codes[0], c2, optim=True,
-            cfg=RegistrationConfig(n_steps=REFINE_STEPS, icp_iterations=0)))
+            cfg=RegistrationConfig(n_steps=REFINE_STEPS, icp_iterations=0)))[0]
         timed("icp", lambda: solve_pairwise_registration(
             model, flat_ref, pc2, codes[0], c2, cfg=RegistrationConfig()))
+        # refine_bf16: one call (R and t finite, R against the f32 call's),
+        # and its refine stage timed as the f32 one is
+        t0 = time.perf_counter()
+        out16 = pipeline(model, REFINE_STEPS, refine_bf16=True)(ref, res)
+        torch.cuda.synchronize()
+        bf16_call_ms = (time.perf_counter() - t0) * 1e3
+        R_refine16 = timed("refine_bf16", lambda: solve_pairwise_registration(
+            model, flat_ref, pc2, codes[0], c2, optim=True,
+            cfg=RegistrationConfig(n_steps=REFINE_STEPS, icp_iterations=0,
+                                   refine_bf16=True)))[0]
+    if not (bool(torch.isfinite(out16["R"]).all())
+            and bool(torch.isfinite(out16["t"]).all())):
+        raise AssertionError(f"{tag}: refine_bf16: non-finite R or t")
+    bf16_dR = float((out16["R"] - R).abs().max())
+    # the refinement alone (no ICP after it, which pulls both to one pose)
+    bf16_dR_refine = float((R_refine16 - R_refine).abs().max())
     stages["refine_ms_per_step"] = stages["refine"] / REFINE_STEPS
+    stages["refine_bf16_ms_per_step"] = stages["refine_bf16"] / REFINE_STEPS
+    log(f"{tag}: refine_bf16 call {bf16_call_ms:.1f} ms (f32 {call_ms:.1f}); refine "
+        f"{stages['refine_bf16_ms_per_step']:.2f} ms a step (f32 "
+        f"{stages['refine_ms_per_step']:.2f}); largest |R - R_f32| {bf16_dR:.3g} "
+        f"after ICP, {bf16_dR_refine:.3g} after the refinement alone")
     log(f"{tag}: stages (ms, host clock with sync; refine = direction pick + "
         f"{REFINE_STEPS} steps, no ICP): " + json.dumps(stages))
     result = {"scenes": S, "objects": O, "points": N_PCL, "n_steps": REFINE_STEPS,
               "ms_per_call": call_ms, "scene_pairs_per_s": S / (call_ms / 1e3),
-              "launches": launches, "stages_ms": stages, "peak_mem_gb": peak_gb}
+              "launches": launches, "stages_ms": stages, "peak_mem_gb": peak_gb,
+              "refine_bf16": {"ms_per_call": bf16_call_ms, "max_abs_dR_f32": bf16_dR,
+                              "max_abs_dR_f32_refine_only": bf16_dR_refine}}
 
     if profile:
         from torch.profiler import ProfilerActivity
@@ -2655,7 +3138,9 @@ def kernel_summary(torch, prof, wall_ms: float, named=()) -> dict:
     also reports its time, which would count it twice."""
     by_name = {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # a record_function range also shows as a span on the device
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.name in RECON_RANGES):
             continue
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
@@ -2689,13 +3174,17 @@ def icp_active_pairs(torch, run):
     return [int(a) for a in kept]
 
 
-def stage_times(torch, model, ref, res, mask, profile=False):
+def stage_times(torch, model, ref, res, mask, profile=False, recon=None):
     """Host-clock ms of each stage of one call, each ended by a sync. With
     `profile`, each stage runs under torch.profiler instead and the result
     is its wall ms, the device ms its kernels took, the busy share, and the
     kernels that took the most device time; for the register stage also
     the ICP-stats kernel's ms and launches, and from one more run of the
-    stage, outside the profiler, the pairs active at each of its launches."""
+    stage, outside the profiler, the pairs active at each of its launches.
+    With `recon` (a PipelineConfig with recon=True) a last stage, "grid",
+    transports the codes and evaluates the grids; profiled, it also gets
+    the device ms and kernel launches of each of grid.py's ranges
+    (range_summary)."""
     from livingscenes_tpu_torch.ops.cuda_fps import fps_auto
     from livingscenes_tpu_torch.solver.matcher import sequential_matcher
     from livingscenes_tpu_torch.solver.registration import (
@@ -2720,6 +3209,8 @@ def stage_times(torch, model, ref, res, mask, profile=False):
             return r
         prof.stop()
         out[name] = kernel_summary(torch, prof, wall, ("icp_stats_kernel",))
+        if name == "grid":
+            out[name]["ranges"] = range_summary(torch, prof)
         return r
 
     with torch.inference_mode():
@@ -2740,9 +3231,38 @@ def stage_times(torch, model, ref, res, mask, profile=False):
             return solve_pairwise_registration(
                 model, a[0], a[1][part], codes[0], c2, cfg=RegistrationConfig())
 
-        timed("register", register)
-        if profile:
+        R, t = timed("register", register)
+        if profile and recon is None:
             out["register"]["active_pairs"] = icp_active_pairs(torch, register)
+        if recon is not None:
+            from livingscenes_tpu_torch.solver.pipeline import _reconstruct
+
+            timed("grid", lambda: _reconstruct(model, recon, recon.recon_final_merge,
+                                               c2, R, t, S, O))
+    return out
+
+
+def range_summary(torch, prof) -> dict:
+    """name -> {"device_ms", "launches"} of the kernels inside each of
+    recon/grid.py's profiler ranges (RECON_RANGES): each range leaves a
+    span on the device's timeline around its kernels, and a kernel counts
+    for the span its start lies in."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == cuda and e.name in RECON_RANGES)
+    if not spans:
+        raise AssertionError("the profiler kept no device span of grid.py's ranges")
+    starts = [sp[0] for sp in spans]
+    out = {name: {"device_ms": 0.0, "launches": 0} for name in RECON_RANGES}
+    for e in prof.events():
+        if e.device_type != cuda or e.name in RECON_RANGES:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start < spans[i][1]:
+            row = out[spans[i][2]]
+            row["device_ms"] += e.time_range.elapsed_us() / 1e3
+            row["launches"] += 1
     return out
 
 
@@ -2776,7 +3296,23 @@ def summary_line(report) -> str:
              f"{sink['sinkhorn_bwd_both']['ms']:.4f}/{sink['sinkhorn_bwd_f_only']['ms']:.4f}, "
              f"row 11 {sink['sinkhorn_iterates']['ms']:.4f}; "
              f"fused call peak {report['pipeline']['peak_mem_gb']:.3f} GB; ")
-    return (f"summary: {heads}scene-pairs/s fused {report['pipeline']['scene_pairs_per_s']:.4f}, "
+    rc = report["recon"]
+    hm = rc["host_meshing"]
+    ranges = ", ".join(f"{k.split('.')[1]} {v['device_ms']:.1f}"
+                       for k, v in rc["stages_device"]["grid"]["ranges"].items())
+    opt = report["pipeline_optim"]["stages_ms"]
+    recon = (f"recon {rc['scenes']}x{rc['objects']}: {rc['ms_per_call']:.1f} ms a call "
+             f"(grid device {rc['stages_device']['grid']['device_ms']:.1f} ms: {ranges}; "
+             f"decoder {rc['decoder_flops']['per_call'] / 1e12:.1f} TFLOP, "
+             f"{rc['share_of_67_grid_device']:.1%} of 67 TFLOP/s), peak "
+             f"{rc['peak_mem_gb']:.2f} GB, host meshing {hm['host_ms']:.0f} ms "
+             f"({hm['n_nonempty']}/{hm['n_matched']} meshes, {hm['faces_raw_mean']:.0f} "
+             f"raw faces a grid), scene-pairs/s {rc['scene_pairs_per_s']['device_only']:.3f} "
+             f"/ {rc['scene_pairs_per_s']['with_host_meshing']:.3f} with meshing, bf16 "
+             f"{rc['bf16']['ms_per_call']:.1f} ms ({rc['bf16']['max_chamfer_voxels']:.3f} "
+             f"voxel); refine_bf16 {opt['refine_bf16_ms_per_step']:.2f} ms a step "
+             f"(f32 {opt['refine_ms_per_step']:.2f}); ")
+    return (f"summary: {heads}{recon}scene-pairs/s fused {report['pipeline']['scene_pairs_per_s']:.4f}, "
             f"default {report['pipeline_default_config']['scene_pairs_per_s']:.4f}, "
             f"optim {report['pipeline_optim']['scene_pairs_per_s']:.4f}; training step "
             f"{tr['step_ms']:.2f} ms ({split}), peak {tr['peak_mem_gb']:.2f} GB; "
@@ -2842,6 +3378,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_small_shapes(torch, report)
     launches = phase_pipeline(torch, report, state, scenes, args.profile)
+    phase_recon(torch, report, state, launches)
     phase_scale(torch, report, state, pc[:, :N_RAGGED].contiguous())
     phase_optim(torch, report, state, args.profile)
     phase_training(torch, report, args.profile)

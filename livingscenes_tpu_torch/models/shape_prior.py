@@ -3,9 +3,8 @@ invariant SDF field, and code transport.
 
 Counterpart of livingscenes_tpu/models/shape_prior.py (`ShapePriorConfig`,
 `ShapePrior.normalize_input`, `encode`, `encode_fps`, `invariant_query`,
-`decode_sdf`, `occupancy_logits`, `transform_codes`), without the
-positional-encoding tail of the query and without reduced-precision decoder
-matmuls.
+`decode_sdf`, `occupancy_logits`, `slice_codes`, `transform_codes`), without
+the positional-encoding tail of the query.
 Codes are the dict {"z_so3": (B, C, 3), "z_inv": (B, C), "s": (B,),
 "t": (B, 1, 3)}. Two behaviours of the reference stay: a cloud of identical
 points gives NaN codes (its scale statistic is 0), and `t` is
@@ -18,6 +17,7 @@ from typing import Dict
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from ..device import resolve_device
 from ..nn.deepsdf import DeepSDFDecoder, Dense, WNDense
@@ -100,6 +100,9 @@ class ShapePrior(nn.Module):
                 module.reset_parameters(gen)
         self.eval()
         self.to(device=device, dtype=dtype)
+        # matmul dtype -> (the parameters' (pointer, version) pairs, the
+        # decoder's parameters cast to it); see _cast_decoder_state
+        self._cast_decoder = {}
 
     @property
     def device(self) -> torch.device:
@@ -168,16 +171,62 @@ class ShapePrior(nn.Module):
         z = codes["z_inv"][:, None, :].expand(-1, query.shape[1], -1)
         return torch.cat([z, inner, length], dim=-1)
 
+    def _cast_decoder_state(self, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+        """The decoder's parameters with each float32 one cast to `dtype`
+        (the others stay as they are, as JAX casts float32 leaves only),
+        detached. Made once per dtype and made again when a parameter is
+        replaced or changed in place (its pointer or version counter
+        moves); the model's own parameters are never cast. The copy is made
+        outside inference mode, so that a later autograd pass (the
+        refinement's) may save it."""
+        params = dict(self.decoder.named_parameters())
+        key = tuple((p.data_ptr(), p._version) for p in params.values())
+        cached = self._cast_decoder.get(dtype)
+        if cached is None or cached[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                cast = {k: p.detach().to(dtype) if p.dtype == torch.float32
+                        else p.detach() for k, p in params.items()}
+            cached = self._cast_decoder[dtype] = (key, cast)
+        return cached[1]
+
     def decode_sdf(self, query: torch.Tensor, codes: Codes,
-                   generator: torch.Generator | None = None) -> torch.Tensor:
+                   generator: torch.Generator | None = None,
+                   matmul_dtype: torch.dtype | None = None) -> torch.Tensor:
         """SDF at world-space points (B, M, 3) -> (B, M). Dropout follows
         the module's train/eval mode (eval after construction); in train
-        mode its masks come from `generator`."""
-        return self.decoder(self.invariant_query(query, codes), generator)
+        mode its masks come from `generator`.
 
-    def occupancy_logits(self, query: torch.Tensor, codes: Codes) -> torch.Tensor:
-        """Bernoulli occupancy logits, sdf2occ_factor * sdf; (B, M)."""
-        return self.config.sdf2occ_factor * self.decode_sdf(query, codes)
+        `matmul_dtype` (e.g. torch.bfloat16): the invariant query is formed
+        in the dtype of the query and codes, then it and the decoder's
+        float32 parameters are cast to `matmul_dtype` (a cached copy, see
+        _cast_decoder_state; the weight norm is taken of the cast copy) and
+        the output is cast back to the query's dtype. Parameters of another
+        dtype stay as they are, and the input is then promoted to theirs
+        after its cast."""
+        x = self.invariant_query(query, codes)
+        if matmul_dtype is None:
+            return self.decoder(x, generator)
+        state = self._cast_decoder_state(matmul_dtype)
+        h = x.to(matmul_dtype)
+        param_dtype = next(iter(state.values())).dtype
+        if param_dtype != matmul_dtype:
+            h = h.to(param_dtype)
+        return functional_call(self.decoder, state, (h, generator)).to(x.dtype)
+
+    def occupancy_logits(self, query: torch.Tensor, codes: Codes,
+                         matmul_dtype: torch.dtype | None = None) -> torch.Tensor:
+        """Bernoulli occupancy logits, sdf2occ_factor * sdf; (B, M).
+        `matmul_dtype`: see decode_sdf."""
+        return self.config.sdf2occ_factor * self.decode_sdf(
+            query, codes, matmul_dtype=matmul_dtype)
+
+
+def slice_codes(codes: Codes, index) -> Codes:
+    """A sub-batch of codes: each entry indexed by `index` along its batch
+    axis; an int keeps the axis (a batch of one)."""
+    if isinstance(index, int):
+        index = [index]
+    return {k: v[index] for k, v in codes.items()}
 
 
 def transform_codes(codes: Codes, tsfm: torch.Tensor) -> Codes:

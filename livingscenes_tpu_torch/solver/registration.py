@@ -29,8 +29,8 @@ _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
 
 @dataclasses.dataclass(frozen=True)
 class RegistrationConfig:
-    """The JAX RegistrationConfig without `refine_bf16` and `use_icp`
-    (defaults mirror configs/more_3rscan.yaml:12-18)."""
+    """The JAX RegistrationConfig without `use_icp` (defaults mirror
+    configs/more_3rscan.yaml:12-18)."""
 
     n_steps: int = 400
     lr: float = 0.05
@@ -50,6 +50,11 @@ class RegistrationConfig:
     # The Sinkhorn kernels (ops/cuda_sinkhorn.py; their plain version on the
     # CPU). False: the materialised matrix of squared differences.
     sinkhorn_pallas: bool = True
+    # The refinement's decoder in bfloat16: its parameters, the moved
+    # points and the codes are cast, so the invariant query is formed in
+    # bfloat16 too; the SDF comes back as float32, and the pose and the
+    # Adam state stay float32. The direction pick decodes in full precision.
+    refine_bf16: bool = False
     icp_iterations: int = 100
     # Fused ICP statistics; None = on for unmasked clouds (ops/icp.py).
     icp_fused: bool | None = None
@@ -213,6 +218,23 @@ def refine_se3(
     return R, t, {"best_loss": best_loss, "stopped": stopped}
 
 
+def _bf16_decode(model) -> Callable:
+    """model.decode_sdf with the query, the codes' float32 entries and the
+    decoder's float32 parameters in bfloat16, returning float32 (JAX's
+    refine_bf16 cast; a model of another dtype keeps its parameters, and
+    the bfloat16 query is promoted to them)."""
+    bf16 = torch.bfloat16
+    matmul_dtype = bf16 if model.dtype == torch.float32 else None
+
+    def decode(query, codes):
+        cast = {k: v.to(bf16) if v.dtype == torch.float32 else v
+                for k, v in codes.items()}
+        return model.decode_sdf(query.to(bf16), cast,
+                                matmul_dtype=matmul_dtype).to(torch.float32)
+
+    return decode
+
+
 def solve_pairwise_registration(
     model,
     pc1: torch.Tensor,
@@ -235,6 +257,7 @@ def solve_pairwise_registration(
     decode = model.decode_sdf
 
     if optim:
+        refine_decode = _bf16_decode(model) if cfg.refine_bf16 else decode
         # refine toward the frame whose code explains its own cloud better
         if cfg.direction_pick:
             with torch.no_grad():
@@ -250,7 +273,7 @@ def solve_pairwise_registration(
 
         shared = {k: sel(codes2[k], codes1[k]) for k in codes2}
         R_opt, t_opt, _ = refine_se3(
-            decode, sel(pc1, pc2), sel(pc2, pc1), shared, sel(R, R_bwd),
+            refine_decode, sel(pc1, pc2), sel(pc2, pc1), shared, sel(R, R_bwd),
             sel(t, t_bwd), cfg)
         # invert where the refinement ran pc2 -> pc1
         R_inv = R_opt.transpose(-1, -2)

@@ -152,8 +152,7 @@ def test_registration_kabsch_and_accept_rules(params):
         with pytest.raises(ValueError, match="icp_accept"):
             solve_pairwise_registration(
                 m, t1, t2, c1, c2, cfg=RegistrationConfig(icp_accept="never"))
-    # the refinement is ported (tests/test_torch_port_refine.py); the
-    # reconstruction leg is not
+    # the refinement (tests/test_torch_port_refine.py) and the
+    # reconstruction leg (tests/test_torch_port_recon_pipeline.py) are ported
     assert callable(build_scene_pair_pipeline(m, PipelineConfig(optim=True)))
-    with pytest.raises(NotImplementedError):
-        build_scene_pair_pipeline(m, PipelineConfig(recon=True))
+    assert callable(build_scene_pair_pipeline(m, PipelineConfig(recon=True)))
