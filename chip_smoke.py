@@ -81,7 +81,17 @@
    picks differ between the two are named, their first difference must be
    a near-tie by the f64 witness, and they are held to 5e-2 after the
    refinement alone, like every object to 2e-3 after ICP).
-7. The training path (kernel rows 12-14, the backward kernels of layer 0,
+7. The MORE solver (phase_more): MoreSolver and accumulate_and_optimize
+   through their own entry points at full width with the r5 checkpoint and
+   MoreSolverConfig() defaults: solve_end2end on each of the 8 scenes
+   (launch counts checked, plain versions forbidden, timed), scene 0
+   against the CPU and all 8 against the batched pipeline; the default
+   encoder config; n_init=4 restarts; optim=True at 400 steps (801 and 800
+   Sinkhorn launches) and at 10 steps against the CPU; meshes, 200 steps
+   of optimize_code, and 20 against the CPU, on procedural shapes; the
+   joint optimisation of 3 scans (FPS at 12288 points). Its bounds are
+   in its docstring.
+8. The training path (kernel rows 12-14, the backward kernels of layer 0,
    the mean edge layer and vector attention). Each backward kernel is held
    against the plain VJP (autograd of its plain forward, in f64) on the
    trained model's activations at the encoder's seven layer shapes with a
@@ -97,7 +107,7 @@
    the step is timed (data, forward, backward, optimizer; peak memory), one
    step at batch 8 is held against the CPU, a checkpoint makes a round
    trip, and 30 steps from a fresh init must lower the loss.
-8. Prints a `kernels` JSON line (all 14 kernels), a line of headline
+9. Prints a `kernels` JSON line (all 14 kernels), a line of headline
    figures, the card line, and as its last line {"ok": true, "device":
    {...}}.
 
@@ -2274,6 +2284,34 @@ def witness_first_difference(torch, card_graphs, cpu_graphs, where, c,
                             for g in (card_graphs, cpu_graphs)), c)
 
 
+def pair_graph_witnesses(torch, card_graphs, cpu_graphs, m0):
+    """For a run that encoded the reference objects, then the rescan's
+    (two record_graphs(keep_inputs=True) runs, card and CPU), and matched
+    reference object o to rescan cloud m0[o]: for each object whose own or
+    partner's cloud got a different kNN graph or FPS pick on the two sides,
+    where the first difference lies ({o: "side cloud c: kind layer l"}) and
+    its tie witness ({o: witness})."""
+    half = len(card_graphs.calls) // 2
+    n_ref = sum(c[0] == "knn" for c in card_graphs.calls[:half])
+    first, sides = {}, {"reference": (0, 0), "rescan": (half, n_ref)}
+    for side, (start, shift) in sides.items():
+        first[side] = graph_differences(
+            *([(k, layer - shift, a) for k, layer, a in g.calls[start:start + half]]
+              for g in (card_graphs, cpu_graphs)), len(m0))[0]
+    swapped, witness = {}, {}
+    for o in range(len(m0)):
+        side, c = (("reference", o) if first["reference"][o]
+                   else ("rescan", int(m0[o])))
+        where = first[side][c]
+        if not where:
+            continue
+        swapped[o] = f"{side} cloud {c}: {where}"
+        start, shift = sides[side]
+        witness[o] = witness_first_difference(
+            torch, card_graphs, cpu_graphs, where, c, start, shift, start + half)
+    return swapped, witness
+
+
 def log_witness(tag, what, w):
     """One line that says what a tie witness found."""
     if "pick_card" in w:
@@ -2802,26 +2840,8 @@ def phase_optim(torch, report, state, profile: bool):
         cpu_s = time.perf_counter() - t0
         if not torch.equal(card["matches0"].cpu(), cpu["matches0"]):
             raise AssertionError(f"{tag}: matches0 differs between card and CPU")
-        # the pipeline encodes the reference objects, then the rescan's
-        half = len(card_graphs.calls) // 2
-        n_ref = sum(c[0] == "knn" for c in card_graphs.calls[:half])
-        first, sides = {}, {"reference": (0, 0), "rescan": (half, n_ref)}
-        for side, (start, shift) in sides.items():
-            first[side] = graph_differences(
-                *([(k, layer - shift, a) for k, layer, a in g.calls[start:start + half]]
-                  for g in (card_graphs, cpu_graphs)), N_OBJ)[0]
-        m0 = cpu["matches0"][0]
-        swapped, witness = {}, {}
-        for o in range(N_OBJ):
-            side, c = (("reference", o) if first["reference"][o]
-                       else ("rescan", int(m0[o])))
-            where = first[side][c]
-            if not where:
-                continue
-            swapped[o] = f"{side} cloud {c}: {where}"
-            start, shift = sides[side]
-            witness[o] = witness_first_difference(
-                torch, card_graphs, cpu_graphs, where, c, start, shift, start + half)
+        swapped, witness = pair_graph_witnesses(
+            torch, card_graphs, cpu_graphs, cpu["matches0"][0])
         dR_obj = (card["R"].cpu() - cpu["R"]).abs().amax((-1, -2))[0]
         dR = float(dR_obj.max())
         dt = float((card["t"].cpu() - cpu["t"]).abs().max())
@@ -2891,6 +2911,448 @@ def phase_optim(torch, report, state, profile: bool):
         "launches": n_bwd, "bound_by": bwd_by, "max_abs_err": errs["sinkhorn_bwd"],
         "library_ms": None,
         **{k: n_bwd / 2 * (both[k] + f_only[k]) for k in both}}
+
+
+def more_want(n_calls: int) -> dict:
+    """The launch counts of n_calls solve_end2end calls of one scene with
+    the fused encoder: the front end's FPS of each side, then per encode
+    (two a call) three FPS, the kNN graphs of layers 1-6, the layer-0 graph
+    with the scale, and the fused layers; 100 ICP-stats launches a call."""
+    per_encode = {"fps": len(FPS_ENCODER), "knn": len(KNN_LAYERS) - 1,
+                  "knn_topk": 1, "layer0": 1, "edge_mean": 1,
+                  "edge_mean_products": 2, "edge_attention": len(KNN_LAYERS) - 2,
+                  "edge_attention_products": 2 * (len(KNN_LAYERS) - 2)}
+    want = {k: 2 * v for k, v in per_encode.items()}
+    want["fps"] += 2
+    want["icp_stats"] = ICP_ITERS
+    return {k: n_calls * v for k, v in want.items()}
+
+
+def check_launches(tag, launches, want):
+    launches = {k: v for k, v in launches.items() if v or k in want}
+    log(f"{tag}: launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{tag}: launch counts {launches}, expected {want}")
+    return launches
+
+
+def code_delta(torch, codes, base):
+    """(B, D): each instance's change of z_inv, z_so3 and t, flattened."""
+    return torch.cat([(codes[k] - base[k]).reshape(base[k].shape[0], -1)
+                      for k in ("z_inv", "z_so3", "t")], dim=1)
+
+
+def symmetry_gap(torch, ref, pts):
+    """(the reference cloud's largest nearest-neighbour gap, the largest
+    distance from a point of `pts` to the reference cloud), in f64 on the
+    host: a cloud moved by a symmetry of the object lies on its surface,
+    as close to the reference samples as they lie to each other."""
+    x = torch.as_tensor(ref, dtype=torch.float64)
+    d = torch.cdist(x, x)
+    d.fill_diagonal_(float("inf"))
+    y = torch.as_tensor(pts, dtype=torch.float64)
+    return (float(d.min(1).values.max()),
+            float(torch.cdist(y, x).min(1).values.max()))
+
+
+def phase_more(torch, report, state, scenes, profile: bool):
+    """The MORE solver (solver/more.py MoreSolver, solver/joint.py
+    accumulate_and_optimize) at full width with the r5 checkpoint, the
+    production encoder and MoreSolverConfig() defaults, through the
+    solver's own entry points. Checks, with the bounds fixed before the
+    first run on the card:
+
+    1. solve_end2end (fused encoder, optim=False, extract_meshes=False) on
+       each of the 8 scenes of make_scenes (8 objects x 4096 points, every
+       point valid): one warm-up call, then the 8 scenes timed one call
+       each, between setting the launch counts to 0 and reading them
+       (rows 1-7: more_want(8) exactly) with every plain version
+       forbidden. matches0 a permutation and the registrations finite.
+       Scene 0 again on the CPU through the plain versions: matches0
+       equal, every object's R within 1e-3, and every kNN graph or FPS
+       pick that differs between the two a near-tie by the f64 witness
+       (knn_tie_witness, fps_tie_witness). The port's batched pipeline
+       (build_scene_pair_pipeline, encode_fps=True) on the same 8 scenes:
+       matches0 equal, R within 1e-3; its median of 3 calls is timed beside.
+    2. pallas_attention=False on scene 0, one timed call after a warm-up:
+       matches0 equal to the fused config's.
+    3. n_init=4 restarts on scene 0's matched pairs (4096 points each),
+       start points from the solver's generator: the chosen candidate is
+       the one whose Kabsch residual, recomputed from the same start
+       points, is the smallest of the four (first among ties): its codes
+       equal those recomputed, bit for bit.
+    4. optim=True on scene 0 with n_steps=400 (the default): rows 1-7 as
+       in 1. for one call plus 801 Sinkhorn forwards and 800 backwards,
+       every plain version forbidden, R and t finite. Scene 0 at
+       n_steps=10 on the card and the CPU: R within 2e-3, or 5e-2 for an
+       object whose clouds got a different kNN graph or FPS pick, each
+       such difference a near-tie by the witness (PERF.md section 2).
+    5. Scene 0 of make_shape_scenes (8 procedural shapes x 4096 points):
+       solve_end2end(extract_meshes=True): at least 90 % of the matched
+       instances give a non-empty mesh with finite vertices; ms per mesh
+       from the call with meshes less the call without. optimize_code with
+       the defaults (200 steps): each instance's loss (the mean squared SDF
+       at its FPS-sampled points) at the returned codes no higher than at
+       the input codes. The same codes and points at 20 steps on the card
+       and on the CPU: each instance's change of (z_inv, z_so3, t) from
+       the input agrees within 5 % of the CPU's change, in norm.
+    6. accumulate_and_optimize on 3 scans: scene 0 of make_shape_scenes
+       and two rigid moves of it (a rotation and translation per object,
+       the objects permuted): matches equal the known permutations; every
+       accumulated rescan point valid in the mask lies within 1e-2 of its
+       object's extent (the diagonal of its bounding box) of its true
+       reference position, unless the object's registration is off by a
+       symmetry of the object: then each of its accumulated points must
+       lie no farther from the reference cloud than the largest gap
+       between a reference point and its nearest neighbour (symmetry_gap),
+       and the object is logged with its pose error. (This scene holds
+       one: an object with two equal principal axes registers 179.9 deg
+       off, its points up to 0.83 of the extent from their true places;
+       its codes cannot tell the two poses apart.) Row 1 launched at
+       3 x 4096 = 12288 points (the joint FPS); the optimized codes
+       finite.
+    """
+    from scipy.spatial.transform import Rotation
+
+    from livingscenes_tpu_torch.models.shape_prior import (
+        ShapePrior, ShapePriorConfig)
+    from livingscenes_tpu_torch.native.bindings import get_lib
+    from livingscenes_tpu_torch.ops import cuda_fps
+    from livingscenes_tpu_torch.solver import (
+        CodeOptimConfig, MoreSolver, MoreSolverConfig, RegistrationConfig,
+        accumulate_and_optimize, kabsch_from_codes, optimize_codes)
+    from livingscenes_tpu_torch.solver.pipeline import (
+        PipelineConfig, build_scene_pair_pipeline)
+
+    tag = "more"
+    result = {}
+
+    def model_for(fused, device):
+        m = ShapePrior(ShapePriorConfig(pallas_attention=fused), device=device)
+        m.load_state_dict(state)
+        return m
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    model, cpu_model = model_for(True, "cuda"), model_for(True, "cpu")
+    solver = MoreSolver(model)
+    ref_np, res_np, mask_np = scenes
+    ref, res = (torch.as_tensor(a, device="cuda") for a in (ref_np, res_np))
+    mask = torch.as_tensor(mask_np, device="cuda")
+
+    def end2end(slv, s, **kw):
+        return slv.solve_end2end(ref[s], mask[s], res[s], mask[s],
+                                 extract_meshes=False, **kw)
+
+    # 1. the fused config on the 8 scenes
+    end2end(solver, 0)  # warm-up
+
+    def all_scenes():
+        return [sync_ms(lambda s=s: end2end(solver, s)) for s in range(N_SCENES)]
+
+    with forbid_plain():
+        runs, launches = counted(all_scenes)
+    check_launches(f"{tag}: solve_end2end x {N_SCENES}", launches, more_want(N_SCENES))
+    outs, samples = [r[0] for r in runs], [r[1] for r in runs]
+    for s, out in enumerate(outs):
+        if sorted(out["matches0"].tolist()) != list(range(N_OBJ)):
+            raise AssertionError(f"{tag}: scene {s}: matches0 "
+                                 f"{out['matches0'].tolist()} is not a permutation")
+        if not bool(torch.isfinite(out["registration"]).all()):
+            raise AssertionError(f"{tag}: scene {s}: non-finite registration")
+    call_ms = float(np.median(samples))
+    result["end2end"] = {"ms_samples": samples, "median_ms": call_ms,
+                         "scene_pairs_per_s": 1e3 / call_ms}
+    log(f"{tag}: solve_end2end {N_OBJ}x{N_FULL} a scene pair, fused: median "
+        f"{call_ms:.2f} ms over {N_SCENES} scenes (min {min(samples):.2f}, max "
+        f"{max(samples):.2f}), {1e3 / call_ms:.3f} scene-pairs/s")
+    if profile:
+        from torch.profiler import ProfilerActivity
+
+        with torch.profiler.profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = sync_ms(lambda: end2end(solver, 0))
+        st = kernel_summary(torch, prof, wall)
+        result["end2end"]["profile"] = st
+        log(f"{tag}: profile of one solve_end2end: wall {wall:.2f} ms, device "
+            f"{st['device_ms']:.2f} ms ({st['busy']:.1%} busy), {st['kernels']} "
+            "kernel launches; top: "
+            + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, ms, n in st["top"][:6]))
+
+    # scene 0 against the CPU
+    R0 = outs[0]["registration"][:, :3, :3]
+    with record_graphs(keep_inputs=True) as card_graphs:
+        card = end2end(solver, 0)
+    if not torch.equal(card["matches0"], outs[0]["matches0"]):
+        raise AssertionError(f"{tag}: scene 0 gave other matches on a second call")
+    t0 = time.perf_counter()
+    with record_graphs(keep_inputs=True) as cpu_graphs:
+        cpu = MoreSolver(cpu_model).solve_end2end(
+            ref_np[0], mask_np[0], res_np[0], mask_np[0], extract_meshes=False)
+    cpu_s = time.perf_counter() - t0
+    if not torch.equal(cpu["matches0"], card["matches0"].cpu()):
+        raise AssertionError(f"{tag}: matches0 card {card['matches0'].tolist()} vs "
+                             f"cpu {cpu['matches0'].tolist()}")
+    swapped, witness = pair_graph_witnesses(torch, card_graphs, cpu_graphs,
+                                            cpu["matches0"])
+    dR = float((card["registration"][:, :3, :3].cpu()
+                - cpu["registration"][:, :3, :3]).abs().max())
+    log(f"{tag}: card vs cpu on scene 0: matches0 equal, max|dR| {dR:.3g}; graphs "
+        "that differ: " + (", ".join(f"{o}: {w}" for o, w in swapped.items()) or "none")
+        + f" (cpu run {cpu_s:.1f} s)")
+    for o, w in witness.items():
+        log_witness(tag, f"object {o}", w)
+    bad = [o for o, w in witness.items() if not w["near_tie"]]
+    if dR > 1e-3 or bad:
+        raise AssertionError(f"{tag}: R differs from the CPU run by {dR}; kNN or FPS "
+                             f"swaps that are no near-tie: {bad}")
+    result["cpu_check"] = {"max_abs_dR": dR, "graph_differs": swapped,
+                           "tie_witness": witness}
+
+    # the batched pipeline on the same scenes
+    pipe = build_scene_pair_pipeline(model, PipelineConfig(encode_fps=True))
+    pipe(ref, res, mask, mask)
+    pipe_samples = []
+    for _ in range(3):
+        pout, ms = sync_ms(lambda: pipe(ref, res, mask, mask))
+        pipe_samples.append(ms)
+    m_solver = torch.stack([o["matches0"] for o in outs])
+    if not torch.equal(pout["matches0"], m_solver):
+        raise AssertionError(f"{tag}: the pipeline's matches0 {pout['matches0'].tolist()} "
+                             f"differ from the solver's {m_solver.tolist()}")
+    R_solver = torch.stack([o["registration"][:, :3, :3] for o in outs])
+    dR_pipe = float((pout["R"] - R_solver).abs().max())
+    pipe_ms = float(np.median(pipe_samples))
+    log(f"{tag}: the pipeline on the same {N_SCENES} scenes: median {pipe_ms:.2f} ms a "
+        f"call, {N_SCENES / (pipe_ms / 1e3):.3f} scene-pairs/s; matches0 equal, "
+        f"max|dR| against the solver {dR_pipe:.3g}")
+    if dR_pipe > 1e-3:
+        raise AssertionError(f"{tag}: R differs from the pipeline's by {dR_pipe}")
+    result["pipeline"] = {"ms_samples": pipe_samples, "median_ms": pipe_ms,
+                          "scene_pairs_per_s": N_SCENES / (pipe_ms / 1e3),
+                          "max_abs_dR_solver": dR_pipe}
+
+    # 2. the default config on scene 0
+    plain_solver = MoreSolver(model_for(False, "cuda"))
+    end2end(plain_solver, 0)
+    out_p, plain_ms = sync_ms(lambda: end2end(plain_solver, 0))
+    if not torch.equal(out_p["matches0"], outs[0]["matches0"]):
+        raise AssertionError(f"{tag}: pallas_attention=False matches0 "
+                             f"{out_p['matches0'].tolist()} vs {outs[0]['matches0'].tolist()}")
+    log(f"{tag}: solve_end2end scene 0, pallas_attention=False: {plain_ms:.2f} ms, "
+        "matches0 equal to the fused config's")
+    result["default_config"] = {"ms": plain_ms}
+
+    # 3. restarts
+    n_init = 4
+    restart = MoreSolver(model, MoreSolverConfig(n_init=n_init))
+    partner = outs[0]["matches0"].long()
+    pc1, pc2 = ref[0], res[0][partner]
+    gen_state = restart.generator.get_state()
+    _, restart_ms = sync_ms(lambda: restart.solve_pairwise_registration(pc1, pc2))
+    restart.generator.set_state(gen_state)
+    starts = restart.restart_starts(N_OBJ, N_FULL)
+    with torch.no_grad():
+        picked = restart._best_fps_restart(pc1, pc2, starts)
+        cands = []
+        for st in starts:
+            c1, c2 = (model.encode(restart._sample(p, start_idx=st)) for p in (pc1, pc2))
+            cands.append((c1, c2, kabsch_from_codes(c1, c2).residual))
+    res4 = torch.stack([c[2] for c in cands])  # (n_init, pairs)
+    best = res4.argmin(0)
+    rows = torch.arange(N_OBJ, device=best.device)
+    same = all(torch.equal(picked[2 + side][k],
+                           torch.stack([c[side][k] for c in cands])[best, rows])
+               for side in (0, 1) for k in picked[2])
+    if not same:
+        raise AssertionError(f"{tag}: the restarts' chosen codes are not those of the "
+                             f"candidates with the smallest residuals {best.tolist()}")
+    log(f"{tag}: n_init={n_init} restarts on scene 0's {N_OBJ} pairs: {restart_ms:.2f} "
+        f"ms; chosen candidate per pair {best.tolist()} (residuals "
+        f"{res4.min(0).values.tolist()}), equal to the smallest of the four recomputed")
+    result["restarts"] = {"n_init": n_init, "ms": restart_ms, "chosen": best.tolist(),
+                          "residuals": res4.tolist()}
+
+    # 4. the refinement
+    with forbid_plain():
+        (out_o, optim_ms), launches = counted(lambda: sync_ms(
+            lambda: end2end(solver, 0, optim=True)))
+    want = dict(more_want(1), sinkhorn=1 + 2 * REFINE_STEPS, sinkhorn_bwd=2 * REFINE_STEPS)
+    check_launches(f"{tag}: solve_end2end(optim=True)", launches, want)
+    if not bool(torch.isfinite(out_o["registration"]).all()):
+        raise AssertionError(f"{tag}: optim=True: non-finite registration")
+    log(f"{tag}: solve_end2end(optim=True) scene 0, n_steps={REFINE_STEPS}: "
+        f"{optim_ms:.1f} ms")
+    reg10 = MoreSolverConfig(registration=RegistrationConfig(n_steps=REFINE_CPU_STEPS))
+    with record_graphs(keep_inputs=True) as card_graphs:
+        card = end2end(MoreSolver(model, reg10), 0, optim=True)
+    t0 = time.perf_counter()
+    with record_graphs(keep_inputs=True) as cpu_graphs:
+        cpu = MoreSolver(cpu_model, reg10).solve_end2end(
+            ref_np[0], mask_np[0], res_np[0], mask_np[0], optim=True, extract_meshes=False)
+    cpu_s = time.perf_counter() - t0
+    if not torch.equal(cpu["matches0"], card["matches0"].cpu()):
+        raise AssertionError(f"{tag}: optim: matches0 differs between card and CPU")
+    swapped, witness = pair_graph_witnesses(torch, card_graphs, cpu_graphs,
+                                            cpu["matches0"])
+    dR_obj = (card["registration"][:, :3, :3].cpu()
+              - cpu["registration"][:, :3, :3]).abs().amax((-1, -2))
+    held = [o for o in range(N_OBJ) if o not in swapped]
+    dR_held = float(dR_obj[held].max()) if held else 0.0
+    dR_swapped = max((float(dR_obj[o]) for o in swapped), default=0.0)
+    log(f"{tag}: optim card vs cpu on scene 0, n_steps={REFINE_CPU_STEPS}: matches0 "
+        f"equal, max|dR| {dR_held:.3g} (objects whose graphs differ: "
+        + (", ".join(f"{o}: {w} (|dR| {float(dR_obj[o]):.3g})" for o, w in swapped.items())
+           or "none") + f"; cpu run {cpu_s:.1f} s)")
+    for o, w in witness.items():
+        log_witness(tag, f"optim object {o}", w)
+    bad = [o for o, w in witness.items() if not w["near_tie"]]
+    if dR_held > 2e-3 or dR_swapped > 5e-2 or bad:
+        raise AssertionError(f"{tag}: optim: R differs from the CPU run by {dR_held} "
+                             f"(objects whose graphs differ: {dR_swapped}); kNN or FPS "
+                             f"swaps that are no near-tie: {bad}")
+    result["optim"] = {"n_steps": REFINE_STEPS, "ms": optim_ms,
+                       "launches": launches,
+                       "cpu_check": {"steps": REFINE_CPU_STEPS, "max_abs_dR_held": dR_held,
+                                     "graph_differs": swapped,
+                                     "max_abs_dR_graph_differs": dR_swapped,
+                                     "tie_witness": witness}}
+
+    # 5. meshes and code optimisation on procedural shapes
+    get_lib()  # the host meshing's library, built (at first use) before it is timed
+    shape_ref_np, shape_res_np = make_shape_scenes(np.random.default_rng(2), 1)
+    sref, sres = (torch.as_tensor(a[0], device="cuda") for a in (shape_ref_np, shape_res_np))
+    solver.solve_end2end(sref, None, sres, None, extract_meshes=False)
+    out_s, no_mesh_ms = sync_ms(lambda: solver.solve_end2end(
+        sref, None, sres, None, extract_meshes=False))
+    out_m, mesh_call_ms = sync_ms(lambda: solver.solve_end2end(sref, None, sres, None))
+    matched = [i for i, m in enumerate(out_m["matches0"].tolist()) if m >= 0]
+    good = [i for i in matched if not out_m["mesh_list"][i].is_empty
+            and bool(np.isfinite(out_m["mesh_list"][i].vertices).all())]
+    ms_per_mesh = (mesh_call_ms - no_mesh_ms) / max(len(matched), 1)
+    faces = [len(out_m["mesh_list"][i].faces) for i in good]
+    log(f"{tag}: solve_end2end with meshes on {N_OBJ} shapes: {mesh_call_ms:.1f} ms "
+        f"({no_mesh_ms:.1f} without), {ms_per_mesh:.1f} ms a mesh; {len(good)}/"
+        f"{len(matched)} matched instances give a finite mesh ({faces} faces)")
+    if len(good) < 0.9 * len(matched):
+        raise AssertionError(f"{tag}: only {len(good)} of {len(matched)} matched "
+                             "instances gave a finite mesh")
+    codes = out_s["ref_codes"]
+    pc_in = solver._sample(sref)
+
+    def code_loss(m, c, p):
+        with torch.no_grad():
+            return torch.mean(m.decode_sdf(p, c) ** 2, dim=-1)
+
+    opt_codes, code_ms = sync_ms(lambda: solver.optimize_code(codes, sref))
+    loss_in, loss_out = code_loss(model, codes, pc_in), code_loss(model, opt_codes, pc_in)
+    log(f"{tag}: optimize_code, {solver.cfg.code_optim.n_steps} steps on {N_OBJ} "
+        f"instances: {code_ms:.1f} ms; loss {loss_in.tolist()} -> {loss_out.tolist()}")
+    if not bool((loss_out <= loss_in).all()):
+        raise AssertionError(f"{tag}: optimize_code raised a loss: {loss_in.tolist()} -> "
+                             f"{loss_out.tolist()}")
+    cfg20 = CodeOptimConfig(n_steps=20)
+    card20, code20_ms = sync_ms(lambda: optimize_codes(model.decode_sdf, codes, pc_in, cfg20))
+    codes_cpu = {k: v.cpu() for k, v in codes.items()}
+    t0 = time.perf_counter()
+    cpu20 = optimize_codes(cpu_model.decode_sdf, codes_cpu, pc_in.cpu(), cfg20)
+    cpu_s = time.perf_counter() - t0
+    d_card = code_delta(torch, {k: v.cpu() for k, v in card20.items()}, codes_cpu)
+    d_cpu = code_delta(torch, cpu20, codes_cpu)
+    rel = (torch.linalg.norm(d_card - d_cpu, dim=1) / torch.linalg.norm(d_cpu, dim=1))
+    log(f"{tag}: optimize_codes 20 steps, card {code20_ms:.1f} ms, cpu {cpu_s:.1f} s: "
+        f"the change from the input differs by {rel.tolist()} of the CPU's, in norm")
+    if not bool((rel <= 0.05).all()):
+        raise AssertionError(f"{tag}: code optimisation differs from the CPU's by "
+                             f"{rel.tolist()} of its change")
+    result["meshes"] = {"call_ms": mesh_call_ms, "call_ms_without": no_mesh_ms,
+                        "ms_per_mesh": ms_per_mesh, "n_matched": len(matched),
+                        "n_finite": len(good), "faces": faces}
+    result["code_optim"] = {"n_steps": solver.cfg.code_optim.n_steps, "ms": code_ms,
+                            "loss_in": loss_in.tolist(), "loss_out": loss_out.tolist(),
+                            "ms_20_steps": code20_ms, "rel_diff_cpu_20": rel.tolist()}
+
+    # 6. joint optimisation over three scans
+    rng = np.random.default_rng(3)
+    base = shape_ref_np[0]
+    scans, perms, moves = [(base, None)], [], []
+    for i in range(2):
+        Rm = Rotation.random(N_OBJ, random_state=10 + i).as_matrix().astype(np.float32)
+        tm = rng.normal(size=(N_OBJ, 1, 3)).astype(np.float32)
+        perm = rng.permutation(N_OBJ)
+        scans.append(((np.einsum("oij,onj->oni", Rm, base) + tm)[perm], None))
+        perms.append(perm)
+        moves.append((Rm, tm))
+    fps_shapes = []
+    real_fps = cuda_fps.fps_cuda
+
+    def fps_seen(points, k, *a, **kw):
+        fps_shapes.append((tuple(points.shape), k))
+        return real_fps(points, k, *a, **kw)
+
+    cuda_fps.fps_cuda = fps_seen
+    try:
+        with forbid_plain():
+            (joint, joint_ms), launches = counted(lambda: sync_ms(
+                lambda: accumulate_and_optimize(solver, scans)))
+    finally:
+        cuda_fps.fps_cuda = real_fps
+    for i, perm in enumerate(perms):
+        if not np.array_equal(joint.matches[i], np.argsort(perm)):
+            raise AssertionError(f"{tag}: joint: scan {i + 1} matches {joint.matches[i]}, "
+                                 f"expected {np.argsort(perm)}")
+    acc = joint.accumulated_pc.cpu().numpy()
+    acc_mask = joint.accumulated_mask.cpu().numpy()
+    extent = np.linalg.norm(base.max(1) - base.min(1), axis=-1)  # (O,)
+    worst, symmetric = 0.0, {}
+    for i, (Rm, _) in enumerate(moves):
+        part = acc[:, (i + 1) * N_FULL:(i + 2) * N_FULL]
+        valid = acc_mask[:, (i + 1) * N_FULL:(i + 2) * N_FULL]
+        err = np.linalg.norm(part - base, axis=-1) / extent[:, None]
+        R_est = joint.transforms[i][:, :3, :3].cpu().double().numpy()
+        for o in range(N_OBJ):
+            e = float(err[o][valid[o]].max())
+            if e <= 1e-2:
+                worst = max(worst, e)
+                continue
+            # the pose is off: it must differ from the truth by a rotation
+            # under which the reference object maps onto itself
+            off = float(np.degrees(np.arccos(np.clip(
+                (np.trace(R_est[o].T @ Rm[o].astype(np.float64)) - 1) / 2, -1, 1))))
+            gap, on_surface = symmetry_gap(torch, base[o], part[o][valid[o]])
+            symmetric[f"scan {i + 1} object {o}"] = {
+                "max_point_error_of_extent": e, "pose_error_deg": off,
+                "max_distance_to_reference_cloud": on_surface,
+                "reference_sampling_gap": gap}
+            log(f"{tag}: joint: scan {i + 1} object {o} registered {off:.2f} deg off the "
+                f"truth (points up to {e:.3g} of the extent from their true places); its "
+                f"points lie within {on_surface:.4g} of the reference cloud, whose own "
+                f"largest nearest-neighbour gap is {gap:.4g}")
+            if on_surface > gap:
+                raise AssertionError(
+                    f"{tag}: joint: scan {i + 1} object {o}: an accumulated point lies "
+                    f"{e} of its object's extent from its reference position, and the "
+                    "pose error is no symmetry of the reference cloud")
+    joint_fps = [sh for sh in fps_shapes if sh[0][1] == 3 * N_FULL]
+    launches = {k: v for k, v in launches.items() if v}
+    log(f"{tag}: accumulate_and_optimize over 3 scans: {joint_ms:.1f} ms; matches "
+        f"equal to the permutations; largest accumulated point error {worst:.3g} of "
+        f"the object's extent ({len(symmetric)} object registrations off by a "
+        f"symmetry of the object); FPS launches (shape, k) {fps_shapes}; launches "
+        f"{launches}")
+    if not joint_fps:
+        raise AssertionError(f"{tag}: joint: no FPS launch at {3 * N_FULL} points")
+    if not all(bool(torch.isfinite(v).all()) for v in joint.codes.values()):
+        raise AssertionError(f"{tag}: joint: non-finite codes")
+    result["joint"] = {"ms": joint_ms, "max_point_error_of_extent": worst,
+                       "off_by_a_symmetry": symmetric,
+                       "fps_launches_12288": len(joint_fps), "launches": launches}
+    report["more"] = result
 
 
 def phase_training(torch, report, profile: bool):
@@ -3312,7 +3774,13 @@ def summary_line(report) -> str:
              f"{rc['bf16']['ms_per_call']:.1f} ms ({rc['bf16']['max_chamfer_voxels']:.3f} "
              f"voxel); refine_bf16 {opt['refine_bf16_ms_per_step']:.2f} ms a step "
              f"(f32 {opt['refine_ms_per_step']:.2f}); ")
-    return (f"summary: {heads}{recon}scene-pairs/s fused {report['pipeline']['scene_pairs_per_s']:.4f}, "
+    mo = report["more"]
+    more = (f"MoreSolver: solve_end2end {mo['end2end']['median_ms']:.1f} ms a scene pair "
+            f"({mo['end2end']['scene_pairs_per_s']:.3f} scene-pairs/s; the pipeline "
+            f"{mo['pipeline']['scene_pairs_per_s']:.3f}), optim {mo['optim']['ms']:.0f} ms, "
+            f"{mo['meshes']['ms_per_mesh']:.0f} ms a mesh, optimize_code "
+            f"{mo['code_optim']['ms']:.0f} ms, joint {mo['joint']['ms']:.0f} ms; ")
+    return (f"summary: {heads}{recon}{more}scene-pairs/s fused {report['pipeline']['scene_pairs_per_s']:.4f}, "
             f"default {report['pipeline_default_config']['scene_pairs_per_s']:.4f}, "
             f"optim {report['pipeline_optim']['scene_pairs_per_s']:.4f}; training step "
             f"{tr['step_ms']:.2f} ms ({split}), peak {tr['peak_mem_gb']:.2f} GB; "
@@ -3381,6 +3849,7 @@ def main() -> int:
     phase_recon(torch, report, state, launches)
     phase_scale(torch, report, state, pc[:, :N_RAGGED].contiguous())
     phase_optim(torch, report, state, args.profile)
+    phase_more(torch, report, state, scenes, args.profile)
     phase_training(torch, report, args.profile)
 
     sources = {

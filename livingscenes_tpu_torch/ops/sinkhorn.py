@@ -1,10 +1,12 @@
-"""The debiased Sinkhorn divergence between point clouds, the refinement
-loss of the registration.
+"""Entropic optimal transport: the dustbin transport of the Sinkhorn
+matcher, and the debiased Sinkhorn divergence between point clouds, the
+refinement loss of the registration.
 
-Counterpart of livingscenes_tpu/ops/sinkhorn.py (`eps_annealing_schedule`,
-`_sym_potentials`, `sinkhorn_yy_term`, `sinkhorn_divergence`); the
-dustbin optimal transport of the Sinkhorn matcher is not ported. Uniform
-weights, cost |x - y|^2 / 2, temperature eps = blur^2.
+Counterpart of livingscenes_tpu/ops/sinkhorn.py (`log_sinkhorn_iterations`,
+`log_optimal_transport`, `eps_annealing_schedule`, `_sym_potentials`,
+`sinkhorn_yy_term`, `sinkhorn_divergence`). The dustbin transport is plain
+PyTorch, as it is plain jnp in the JAX package, on its inputs' device. The
+divergence: uniform weights, cost |x - y|^2 / 2, temperature eps = blur^2.
 
 Two routes to the potentials of OT(x, y):
   * with `implicit_grad` and `pallas` not False,
@@ -30,6 +32,38 @@ from .cuda_sinkhorn import (
     softmin_cols,
     softmin_rows,
 )
+
+
+def log_sinkhorn_iterations(Z: torch.Tensor, log_mu: torch.Tensor,
+                            log_nu: torch.Tensor, iters: int) -> torch.Tensor:
+    """`iters` log-space Sinkhorn normalizations of the scores Z (B, M, N)
+    toward the marginals log_mu (B, M) and log_nu (B, N)."""
+    u, v = torch.zeros_like(log_mu), torch.zeros_like(log_nu)
+    for _ in range(iters):
+        u = log_mu - torch.logsumexp(Z + v[:, None, :], dim=2)
+        v = log_nu - torch.logsumexp(Z + u[:, :, None], dim=1)
+    return Z + u[:, :, None] + v[:, None, :]
+
+
+def log_optimal_transport(scores: torch.Tensor, alpha, iters: int) -> torch.Tensor:
+    """Optimal transport with a dustbin row and column of score `alpha`:
+    scores (B, M, N) -> the log coupling (B, M + 1, N + 1), scaled by
+    M + N."""
+    b, m, n = scores.shape
+    dt, dev = scores.dtype, scores.device
+    ms = torch.tensor(m, dtype=dt, device=dev)
+    ns = torch.tensor(n, dtype=dt, device=dev)
+    alpha = torch.as_tensor(alpha, dtype=dt, device=dev)
+    couplings = torch.cat([
+        torch.cat([scores, alpha.expand(b, m, 1)], dim=-1),
+        torch.cat([alpha.expand(b, 1, n), alpha.expand(b, 1, 1)], dim=-1),
+    ], dim=1)
+    norm = -torch.log(ms + ns)
+    log_mu = torch.cat([norm.expand(m), (torch.log(ns) + norm)[None]])
+    log_nu = torch.cat([norm.expand(n), (torch.log(ms) + norm)[None]])
+    Z = log_sinkhorn_iterations(couplings, log_mu.expand(b, m + 1),
+                                log_nu.expand(b, n + 1), iters)
+    return Z - norm
 
 
 def _sq_cost(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,8 @@ Counterpart of livingscenes_tpu/solver/registration.py:
    best-loss tracking, and a freeze of every pair whose rotation has
    drifted more than `early_stop_deg` from its init. All pairs step
    together; a frozen pair keeps its iterate and its Adam moments.
-3. ICP, whose pose is kept per instance by the `icp_accept` rule.
+3. With `use_icp`, ICP, whose pose is kept per instance by the
+   `icp_accept` rule.
 """
 from __future__ import annotations
 
@@ -29,8 +30,7 @@ _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
 
 @dataclasses.dataclass(frozen=True)
 class RegistrationConfig:
-    """The JAX RegistrationConfig without `use_icp` (defaults mirror
-    configs/more_3rscan.yaml:12-18)."""
+    """Defaults mirror configs/more_3rscan.yaml:12-18."""
 
     n_steps: int = 400
     lr: float = 0.05
@@ -56,6 +56,9 @@ class RegistrationConfig:
     # Adam state stay float32. The direction pick decodes in full precision.
     refine_bf16: bool = False
     icp_iterations: int = 100
+    # False: the pose after Kabsch (and the refinement) is returned, with no
+    # ICP and no acceptance test.
+    use_icp: bool = True
     # Fused ICP statistics; None = on for unmasked clouds (ops/icp.py).
     icp_fused: bool | None = None
     direction_pick: bool = True  # False: always refine pc1 -> pc2
@@ -246,7 +249,7 @@ def solve_pairwise_registration(
 ):
     """Register (B, N, 3) clouds pc1 -> pc2; returns (R (B, 3, 3),
     t (B, 3, 1))."""
-    if cfg.icp_accept not in ("always", "symch", "sdf"):
+    if cfg.use_icp and cfg.icp_accept not in ("always", "symch", "sdf"):
         raise ValueError(f"icp_accept={cfg.icp_accept!r}")
     if codes1 is None:
         codes1 = model.encode(pc1)
@@ -280,6 +283,8 @@ def solve_pairwise_registration(
         R = sel(R_opt, R_inv)
         t = sel(t_opt, -torch.matmul(R_inv, t_opt))
 
+    if not cfg.use_icp:
+        return R, t
     res = iterative_closest_point(
         pc1, pc2, init_R=R, init_t=t[..., 0],
         max_iterations=cfg.icp_iterations, fused_stats=cfg.icp_fused,
