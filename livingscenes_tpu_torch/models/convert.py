@@ -158,3 +158,76 @@ def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
         for leaf, value in layer.items():
             out[f"decoder.lin.{name[3:]}.{leaf}"] = torch.from_numpy(np.array(value))
     return out
+
+
+def _decoder_layer(name: str) -> str:
+    """"lin3" -> "3"; raises on any other decoder entry."""
+    if not (name.startswith("lin") and name[3:].isdigit()):
+        raise ValueError(f"unexpected decoder entry {name!r}")
+    return name[3:]
+
+
+def state_dict_from_torch(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A reference checkpoint's state dict (keys
+    "network_dict.{encoder,decoder}.<module path>", a "module." prefix
+    dropped) in the port's layout. The encoder's keys are the reference's;
+    a weight-normed decoder layer "lin<i>.weight_v" (out, in),
+    "lin<i>.weight_g" (out, 1) and "lin<i>.bias" becomes "decoder.lin.<i>.v"
+    (in, out), ".g" (out,) and ".b", in either torch layout of weight norm;
+    a plain one "lin<i>.weight" and ".bias" becomes ".kernel" (in, out) and
+    ".bias". Keys of neither part (the reference's classification head or
+    positional-encoding projector, which the port has not) raise."""
+    out: Dict[str, torch.Tensor] = {}
+    decoder: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key, value in sd.items():
+        parts = key.replace("module.", "").split(".")
+        if "encoder" in parts:
+            rest = parts[parts.index("encoder") + 1:]
+            out[".".join(["encoder"] + rest)] = value.detach().cpu()
+        elif "decoder" in parts:
+            rest = parts[parts.index("decoder") + 1:]
+            decoder.setdefault(_decoder_layer(rest[0]), {})[".".join(rest[1:])] = (
+                value.detach().cpu())
+        else:
+            raise ValueError(f"checkpoint key {key!r} belongs to no part of the "
+                             "port's model")
+    for i, leaves in decoder.items():
+        v = leaves.pop("weight_v", leaves.pop("parametrizations.weight.original1", None))
+        g = leaves.pop("weight_g", leaves.pop("parametrizations.weight.original0", None))
+        prefix = f"decoder.lin.{i}"
+        if v is not None:
+            out[f"{prefix}.v"] = v.T.contiguous()
+            out[f"{prefix}.g"] = g.reshape(-1)
+            out[f"{prefix}.b"] = leaves.pop("bias")
+        else:
+            out[f"{prefix}.kernel"] = leaves.pop("weight").T.contiguous()
+            out[f"{prefix}.bias"] = leaves.pop("bias")
+        if leaves:
+            raise ValueError(f"unexpected entries of decoder layer lin{i}: "
+                             f"{sorted(leaves)}")
+    return out
+
+
+def state_dict_to_torch(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The port's state dict in the reference checkpoint's layout: the
+    inverse of `state_dict_from_torch` (weight norm as weight_v and
+    weight_g)."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in state.items():
+        comp, rest = key.split(".", 1)
+        if comp == "encoder":
+            out[f"network_dict.encoder.{rest}"] = value
+            continue
+        _, i, leaf = rest.split(".")
+        name = f"network_dict.decoder.lin{i}"
+        if leaf == "v":
+            out[f"{name}.weight_v"] = value.T.contiguous()
+        elif leaf == "g":
+            out[f"{name}.weight_g"] = value.reshape(-1, 1)
+        elif leaf in ("b", "bias"):
+            out[f"{name}.bias"] = value
+        elif leaf == "kernel":
+            out[f"{name}.weight"] = value.T.contiguous()
+        else:
+            raise ValueError(f"unexpected state-dict key {key!r}")
+    return out

@@ -155,12 +155,33 @@ class ShapePrior(nn.Module):
             "t": (center[:, 0, :] + centroid)[:, None, :],
         }
 
-    def encode_fps(self, pc: torch.Tensor, mask: torch.Tensor | None = None) -> Codes:
+    def encode_fps(self, pc: torch.Tensor, mask: torch.Tensor | None = None,
+                   n_fps: int = 1, generator: torch.Generator | None = None,
+                   starts: torch.Tensor | None = None) -> Codes:
         """FPS-downsample each padded (B, N, 3) cloud with its (B, N)
-        validity mask to `n_pcl` points, then encode (one FPS start, at
-        index 0: the JAX `n_fps=1`)."""
-        sampled, _ = fps_auto(pc, self.config.n_pcl, mask=mask)
-        return self.encode(sampled)
+        validity mask to `n_pcl` points, then encode. With n_fps = 1 the FPS
+        starts at index 0. With n_fps > 1 it restarts n_fps times, each from
+        a random valid point of each cloud, and the codes are averaged:
+        `starts` (n_fps, B) gives the start points, else they are drawn
+        uniformly among each cloud's valid points from `generator` (a new
+        one seeded with 0 when None)."""
+        k = self.config.n_pcl
+        if n_fps <= 1:
+            sampled, _ = fps_auto(pc, k, mask=mask)
+            return self.encode(sampled)
+        B, N, _ = pc.shape
+        if starts is None:
+            valid = (torch.ones((B, N)) if mask is None
+                     else mask.detach().to("cpu", torch.float32))
+            generator = generator or torch.Generator().manual_seed(0)
+            starts = torch.stack([
+                torch.multinomial(valid, 1, generator=generator)[:, 0]
+                for _ in range(n_fps)])
+        starts = torch.as_tensor(starts, device=pc.device)
+        codes = [self.encode(fps_auto(pc, k, mask=mask, start_idx=start)[0])
+                 for start in starts]
+        return {key: torch.mean(torch.stack([c[key] for c in codes]), dim=0)
+                for key in codes[0]}
 
     def invariant_query(self, query: torch.Tensor, codes: Codes) -> torch.Tensor:
         """The decoder's input for world-space points (B, M, 3):

@@ -1,2 +1,3 @@
-"""The port's host meshing: isosurface extraction and quadric simplification
-in C++ (src/), built with g++ at first use and bound with ctypes."""
+"""The port's host geometry: isosurface extraction, quadric simplification,
+kd-tree queries, point-in-mesh tests and voxelization in C++ (src/), built
+with g++ at first use and bound with ctypes."""

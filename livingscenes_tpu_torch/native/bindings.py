@@ -1,18 +1,22 @@
-"""ctypes bindings of the port's host meshing library.
+"""ctypes bindings of the port's host geometry library.
 
 Counterpart of livingscenes_tpu/native/bindings.py (`marching_isosurface`,
-`simplify_mesh`), from copies of its two C++ sources in `src/`, which use
-the standard library only. The library is compiled with `g++` at the first
-call into `livingscenes_tpu_torch/_build/` (listed in `.gitignore`), under a
-name that carries a hash of the sources, the flags and the host (the flags
+`simplify_mesh`, `KDTree`, `check_mesh_contains`, `voxelize_mesh`), from
+copies of its C++ sources in `src/`, which use the standard library only.
+The library is compiled with `g++` at the first call into
+`livingscenes_tpu_torch/_build/` (listed in `.gitignore`), under a name
+that carries a hash of the sources, the flags and the host (the flags
 include `-march=native`); it is written to a temporary name and moved into
 place, so that processes that build at once do not read a half-written
 file. Importing this module builds and loads nothing. Without `g++` the
 first call raises.
 
-The flags are the JAX package's Makefile's less `-fopenmp`: the two
-sources have no OpenMP directive, so it changes no code, and a g++ without
-libgomp refuses it.
+The flags are the JAX package's Makefile's less `-fopenmp`, which a g++
+without libgomp refuses: the kd-tree and point-in-mesh queries, whose loops
+carry OpenMP directives, are instead split into contiguous chunks that
+Python threads pass to the library at once (ctypes lets go of the GIL
+during a call). Each query is independent of the others, so the results
+are those of one call.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import platform
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Tuple
 
@@ -31,11 +36,13 @@ import numpy as np
 _PKG = Path(__file__).resolve().parents[1]
 SRC = Path(__file__).resolve().parent / "src"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("isosurface.cpp", "simplify.cpp")
+SOURCES = ("isosurface.cpp", "simplify.cpp", "kdtree.cpp", "inside_mesh.cpp",
+           "voxelize.cpp")
 FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
 _lib = None
+QUERY_CHUNK = 2048  # queries a thread takes at a time, at the least
 
 
 def _compiler() -> str:
@@ -108,6 +115,29 @@ def get_lib() -> ctypes.CDLL:
             lib.simplify_copy.argtypes = [ctypes.c_void_p, f32p, i64p]
             lib.simplify_free.restype = None
             lib.simplify_free.argtypes = [ctypes.c_void_p]
+
+            i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+            lib.kdtree_build.restype = ctypes.c_void_p
+            lib.kdtree_build.argtypes = [f32p, i64]
+            lib.kdtree_query.restype = None
+            lib.kdtree_query.argtypes = [ctypes.c_void_p, f32p, i64, f32p, i32p]
+            lib.kdtree_query_k.restype = None
+            lib.kdtree_query_k.argtypes = [ctypes.c_void_p, f32p, i64,
+                                           ctypes.c_int32, f32p, i32p]
+            lib.kdtree_free.restype = None
+            lib.kdtree_free.argtypes = [ctypes.c_void_p]
+
+            lib.voxelize_mesh.restype = None
+            lib.voxelize_mesh.argtypes = [f32p, i64, i64p, i64, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_int, u8p]
+
+            lib.inside_mesh_build.restype = ctypes.c_void_p
+            lib.inside_mesh_build.argtypes = [f32p, i64, i64p, i64, ctypes.c_int]
+            lib.inside_mesh_query.restype = None
+            lib.inside_mesh_query.argtypes = [ctypes.c_void_p, f32p, i64, u8p]
+            lib.inside_mesh_free.restype = None
+            lib.inside_mesh_free.argtypes = [ctypes.c_void_p]
             _lib = lib
     return _lib
 
@@ -156,3 +186,79 @@ def simplify_mesh(verts: np.ndarray, faces: np.ndarray, target_faces: int,
         return out_v, out_f
     finally:
         lib.simplify_free(handle)
+
+
+def _in_chunks(fn, n: int) -> None:
+    """fn(a, b) over contiguous chunks [a, b) of range(n), on threads."""
+    workers = min(len(os.sched_getaffinity(0)), max(1, n // QUERY_CHUNK))
+    if workers <= 1:
+        fn(0, n)
+        return
+    bounds = [n * i // workers for i in range(workers + 1)]
+    with ThreadPoolExecutor(workers, thread_name_prefix="lstpu-native") as pool:
+        list(pool.map(fn, bounds[:-1], bounds[1:]))
+
+
+class KDTree:
+    """Nearest-neighbour queries against a fixed set of 3-D points."""
+
+    def __init__(self, points: np.ndarray):
+        self._lib = get_lib()
+        self._pts = np.ascontiguousarray(points, np.float32).reshape(-1, 3)
+        self._handle = self._lib.kdtree_build(self._pts, len(self._pts))
+
+    def query(self, queries: np.ndarray, k: int = 1) -> Tuple[np.ndarray, np.ndarray]:
+        """(dist, idx) of the k nearest points of each query, ascending:
+        (m,) arrays for k = 1, (m, k) otherwise (slots past the point count
+        hold inf and -1)."""
+        q = np.ascontiguousarray(queries, np.float32).reshape(-1, 3)
+        if k == 1:
+            dist = np.empty(len(q), np.float32)
+            idx = np.empty(len(q), np.int32)
+            _in_chunks(lambda a, b: self._lib.kdtree_query(
+                self._handle, q[a:b], b - a, dist[a:b], idx[a:b]), len(q))
+            return dist, idx
+        dist = np.empty((len(q), k), np.float32)
+        idx = np.empty((len(q), k), np.int32)
+        _in_chunks(lambda a, b: self._lib.kdtree_query_k(
+            self._handle, q[a:b], b - a, int(k), dist[a:b], idx[a:b]), len(q))
+        return dist, idx
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.kdtree_free(self._handle)
+            self._handle = None
+
+
+def check_mesh_contains(verts: np.ndarray, faces: np.ndarray, queries: np.ndarray,
+                        resolution: int = 128) -> np.ndarray:
+    """(m,) bool: whether each query point lies inside the closed mesh (the
+    parity of a +z ray's crossings, over a `resolution`^2 bucket grid of the
+    triangles)."""
+    lib = get_lib()
+    v = np.ascontiguousarray(verts, np.float32)
+    f = np.ascontiguousarray(faces, np.int64)
+    q = np.ascontiguousarray(queries, np.float32).reshape(-1, 3)
+    handle = lib.inside_mesh_build(v, len(v), f, len(f), int(resolution))
+    try:
+        out = np.empty(len(q), np.uint8)
+        _in_chunks(lambda a, b: lib.inside_mesh_query(handle, q[a:b], b - a, out[a:b]),
+                   len(q))
+        return out.astype(bool)
+    finally:
+        lib.inside_mesh_free(handle)
+
+
+def voxelize_mesh(verts: np.ndarray, faces: np.ndarray, resolution: int) -> np.ndarray:
+    """(res, res, res) bool surface voxelization by triangle-box overlap,
+    the vertices mapped onto the grid over their bounding box."""
+    lib = get_lib()
+    v = np.asarray(verts, np.float32)
+    lo = v.min(0)
+    extent = max(float((v.max(0) - lo).max()), 1e-9)
+    grid_v = np.ascontiguousarray((v - lo) / extent * resolution, np.float32)
+    f = np.ascontiguousarray(faces, np.int64)
+    occ = np.zeros((resolution, resolution, resolution), np.uint8)
+    lib.voxelize_mesh(grid_v, len(grid_v), f, len(f), resolution, resolution,
+                      resolution, occ)
+    return occ.astype(bool)

@@ -4,8 +4,10 @@ Counterpart of livingscenes_tpu/ops/icp.py. Every pair runs
 `max_iterations` rounds of (nearest target -> rigid refit); a pair freezes
 once its relative RMSE change drops below `relative_rmse_thr` and keeps its
 R, t, RMSE and quaternion from then on. The first change is inf/inf = NaN,
-which never freezes. There is no early exit and no host sync inside the
-loop.
+which never freezes. By default there is no early exit and no host sync
+inside the loop; `early_exit=True` reads whether every pair is frozen from
+the device after each iteration and stops once they all are, with the
+same result bit for bit (a frozen pair never changes again).
 
 Two refits:
   * fused stats (default for unmasked clouds): one correspondence-step
@@ -47,6 +49,7 @@ def iterative_closest_point(
     src_mask: torch.Tensor | None = None,
     tgt_mask: torch.Tensor | None = None,
     fused_stats: bool | None = None,
+    early_exit: bool = False,
 ) -> ICPResult:
     """Rigid ICP aligning src (B, N, 3) to tgt (B, M, 3)."""
     B, N, _ = src.shape
@@ -95,4 +98,6 @@ def iterative_closest_point(
         t = torch.where(frozen[:, None], t, t_new)
         prev_rmse = torch.where(frozen, prev_rmse, rmse)
         frozen = frozen | (rel < relative_rmse_thr)
+        if early_exit and bool(torch.all(frozen)):
+            break
     return ICPResult(R=R, t=t, rmse=prev_rmse, converged=frozen)

@@ -1,5 +1,6 @@
 """Batched SE(3) math: transforms, the so(3)/se(3) exponential and
-logarithm maps, Kabsch and Horn rotation fits, errors.
+logarithm maps, Kabsch and Horn rotation fits, registration errors, and
+the robust (Huber) weights.
 
 Counterpart of livingscenes_tpu/se3.py.
 Conventions: points are right-multiplied by R^T; an SE(3) transform is a
@@ -10,11 +11,26 @@ from __future__ import annotations
 import torch
 
 
+def identity(batch_size: int, dtype: torch.dtype = torch.float32,
+             device=None) -> torch.Tensor:
+    """(B, 3, 4) identity transforms."""
+    eye = torch.eye(3, 4, dtype=dtype, device=device)
+    return eye.expand(batch_size, 3, 4)
+
+
 def inverse(g: torch.Tensor) -> torch.Tensor:
     """Inverse of (..., 3/4, 4) transforms, as (..., 3, 4)."""
     rot_t = g[..., :3, :3].transpose(-1, -2)
     t_inv = -torch.matmul(rot_t, g[..., :3, 3:])
     return torch.cat([rot_t, t_inv], dim=-1)
+
+
+def concatenate(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The composition a . b of (..., 3/4, 4) transforms, as (..., 3, 4)."""
+    rot1, t1 = a[..., :3, :3], a[..., :3, 3:]
+    rot2, t2 = b[..., :3, :3], b[..., :3, 3:]
+    return torch.cat([torch.matmul(rot1, rot2),
+                      torch.matmul(rot1, t2) + t1], dim=-1)
 
 
 def transform(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -28,6 +44,14 @@ def rt_to_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
     top = torch.cat([R, t.reshape(B, 3, 1)], dim=-1)
     return torch.cat([top, bottom.expand(B, 1, 4)], dim=1)
+
+
+def to_4x4(g: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 4) -> (..., 4, 4); a (..., 4, 4) input is returned as is."""
+    if g.shape[-2] == 4:
+        return g
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=g.dtype, device=g.device)
+    return torch.cat([g, bottom.expand(g.shape[:-2] + (1, 4))], dim=-2)
 
 
 def hat(w: torch.Tensor) -> torch.Tensor:
@@ -191,6 +215,13 @@ def rotation_from_covariance_horn(
     return matrix_from_quat_wxyz(q), q
 
 
+def solve_rotation(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
+    """Orthogonal Procrustes with the reflection fixed: R (B, 3, 3) with
+    R f1 ~ f2 in the least-squares sense, for corresponding (B, N, 3)
+    vectors."""
+    return rotation_from_covariance(torch.matmul(f1.transpose(-1, -2), f2))
+
+
 def transformation_residuals(x1, x2, R, t) -> torch.Tensor:
     """Euclidean residuals of x2 ~ R x1 + t; (B, N)."""
     x2_hat = torch.matmul(R, x1.transpose(-1, -2)) + t
@@ -217,6 +248,14 @@ def kabsch(x1, x2, weights=None, normalize_w: bool = True, eps: float = 1e-7):
     return R, t, transformation_residuals(x1, x2, R, t)
 
 
+def solve_transform_from_latent(code1: dict, code2: dict) -> torch.Tensor:
+    """The (B, 4, 4) transform carrying code1's frame onto code2's: R from
+    the equivariant features z_so3 (B, C, 3), t from the centres (B, 1, 3)."""
+    R = solve_rotation(code1["z_so3"], code2["z_so3"])
+    t = code2["t"] - torch.matmul(code1["t"], R.transpose(-1, -2))
+    return to_4x4(torch.cat([R, t.transpose(-1, -2)], dim=-1))
+
+
 def rotation_error(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
     """Geodesic rotation error in degrees; (B,)."""
     R_ = torch.matmul(R1.transpose(-1, -2), R2)
@@ -228,3 +267,69 @@ def rotation_error(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
 def translation_error(t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
     """Norm of the translation difference; (B,)."""
     return torch.linalg.norm((t1 - t2).reshape(t1.shape[0], -1), dim=-1)
+
+
+def compute_transformation_error(pc1: torch.Tensor, pc2: torch.Tensor,
+                                 pred_tsfm: torch.Tensor,
+                                 gt_tsfm: torch.Tensor) -> torch.Tensor:
+    """Endpoint RMSE of a predicted transform against the true one, both
+    ways: pc1 (B, N, 3) moved forward and pc2 (B, M, 3) moved back; a
+    scalar over the whole batch."""
+    e12 = transform(pred_tsfm, pc1) - transform(gt_tsfm, pc1)
+    e21 = transform(inverse(pred_tsfm), pc2) - transform(inverse(gt_tsfm), pc2)
+    err = torch.cat([e12, e21], dim=1)
+    return torch.sqrt(torch.mean(err ** 2))
+
+
+def chamfer_distance_under_transforms(src: torch.Tensor, ref: torch.Tensor,
+                                      pred_tsfm: torch.Tensor,
+                                      gt_tsfm: torch.Tensor) -> torch.Tensor:
+    """Registration chamfer; (B,): the mean squared nearest-neighbour
+    distance from pred(src) to ref, plus that from ref to
+    pred(gt^-1(ref)). The distances are formed from coordinate
+    differences, not from the norms' expansion."""
+    src_t = transform(pred_tsfm, src)
+    ref_it = transform(concatenate(pred_tsfm, inverse(gt_tsfm)), ref)
+
+    def sq_nearest(a, b):
+        d = torch.cdist(a, b, compute_mode="donot_use_mm_for_euclid_dist")
+        return torch.min(d, dim=-1).values ** 2
+
+    return (torch.mean(sq_nearest(src_t, ref), dim=1)
+            + torch.mean(sq_nearest(ref, ref_it), dim=1))
+
+
+def from_xyzquat(xyzquat: torch.Tensor) -> torch.Tensor:
+    """(..., 7) [x y z qx qy qz qw] -> (..., 3, 4); the quaternion is
+    normalised first."""
+    t = xyzquat[..., :3]
+    x, y, z, w = xyzquat[..., 3:7].unbind(-1)
+    n = torch.sqrt(x * x + y * y + z * z + w * w)
+    R = matrix_from_quat_wxyz(torch.stack([w / n, x / n, y / n, z / n], dim=-1))
+    return torch.cat([R, t[..., None]], dim=-1)
+
+
+def random_rotation(generator: torch.Generator, batch_shape=(),
+                    dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """Uniform random rotations (..., 3, 3) from normalised Gaussian
+    quaternions drawn from `generator` (on the CPU, then moved to
+    `device`)."""
+    q = torch.randn(tuple(batch_shape) + (4,), generator=generator, dtype=dtype)
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    xyzquat = torch.cat([torch.zeros(q.shape[:-1] + (3,), dtype=dtype), q], dim=-1)
+    return from_xyzquat(xyzquat)[..., :3, :3].to(device)
+
+
+def huber_norm_weights(x: torch.Tensor, b: float = 0.02) -> torch.Tensor:
+    """IRLS Huber weights of residual norms x >= 0: 1 up to b, then
+    sqrt(2 b x - b^2) / x."""
+    res_norm = torch.where(x <= b, x ** 2, 2.0 * b * x - b ** 2)
+    safe_x = torch.where(x == 0, 1.0, x)
+    return torch.sqrt(res_norm) / safe_x
+
+
+def get_robust_res(res: torch.Tensor, b: float):
+    """Huber-weighted residuals (..., 1, 1) and the squared weights."""
+    res = res.reshape(-1, 1, 1)
+    w = huber_norm_weights(torch.abs(res), b=b)
+    return w * res, w ** 2

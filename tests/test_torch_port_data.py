@@ -22,6 +22,7 @@ from livingscenes_tpu.train import config as jconfig
 from livingscenes_tpu.train import data as jdata
 from livingscenes_tpu_torch.train import config as pconfig
 from livingscenes_tpu_torch.train import data as pdata
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))

@@ -22,6 +22,7 @@ from livingscenes_tpu.nn import deepsdf as jdeepsdf
 from livingscenes_tpu_torch.models.convert import load_flax_checkpoint, params_from_jax
 from livingscenes_tpu_torch.models.shape_prior import ShapePrior, ShapePriorConfig
 from livingscenes_tpu_torch.nn.deepsdf import DeepSDFDecoder, WNDense
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "weights", "production_r5_selected.ckpt")

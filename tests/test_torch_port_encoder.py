@@ -26,6 +26,7 @@ from livingscenes_tpu_torch.models.shape_prior import (
     ShapePriorConfig,
     transform_codes,
 )
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 SMALL = dict(c_dim=32, feat_dim=(8, 8, 16, 16, 16, 32, 32), num_knn=8, n_pcl=256)
 

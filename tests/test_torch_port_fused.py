@@ -1,6 +1,7 @@
 """The PyTorch port's fused-encoder path (ShapePriorConfig(pallas_attention=
 True)) held against the JAX package on the CPU. The same numpy inputs, made
 from a seed, go into both sides.
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 On the CPU the port's wrappers run their plain versions; the JAX functions
 that reach a Pallas kernel run it in interpret mode, as the JAX package's

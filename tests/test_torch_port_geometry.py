@@ -28,6 +28,7 @@ from livingscenes_tpu_torch.ops.cuda_fps import fps_auto
 from livingscenes_tpu_torch.ops.cuda_knn import knn_auto
 from livingscenes_tpu_torch.ops.fps import farthest_point_sampling
 from livingscenes_tpu_torch.ops.knn import gather_neighbors, knn
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 
 def t(x):

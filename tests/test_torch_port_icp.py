@@ -25,6 +25,7 @@ from livingscenes_tpu.ops.knn import pairwise_sqdist as jsqdist
 from livingscenes_tpu.ops.pallas_icp import icp_iteration_stats as jstats
 from livingscenes_tpu_torch.ops.cuda_icp import icp_iteration_stats, icp_stats_plain
 from livingscenes_tpu_torch.ops.icp import iterative_closest_point
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 
 def t(x):

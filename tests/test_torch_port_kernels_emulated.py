@@ -5,9 +5,10 @@ There is no card and no nvcc where these tests run, so the kernels' own code
 (livingscenes_tpu_torch/csrc/*.cu) is compiled by the host's g++ against a
 stand-in for the CUDA runtime (CUDA_RUNTIME_STAND_IN below, written out as
 the `cuda_runtime.h` the sources include: blocks one after another, a
-block's threads as OS threads, barriers for __syncthreads and the warp
-shuffles, dynamic shared memory poisoned with NaN; the warp reductions,
-cp.async and its waits; cudaLaunchKernelEx with a cluster dimension, whose
+block's threads as fibers run in turns between barriers, barriers for
+__syncthreads and the warp shuffles, a check of every plain store for a
+race with another thread of the block, dynamic shared memory poisoned
+with NaN; the warp reductions, cp.async and its waits; cudaLaunchKernelEx with a cluster dimension, whose
 blocks run at the same time and share cluster.sync()). Only the launches
 `kernel<<<grid, block, shared, stream>>>(...)` and the `extern __shared__`
 declarations are rewritten; atomicAdd and atomicMax are compare-and-swap
@@ -39,6 +40,9 @@ the sources' gradients with atomics, in no fixed order); the scale
 statistic rtol 1e-6.
 """
 import ctypes
+import fcntl
+import hashlib
+import os
 import re
 import shutil
 import subprocess
@@ -50,16 +54,23 @@ import torch
 from livingscenes_tpu_torch.nn import cuda_attention, cuda_layer0
 from livingscenes_tpu_torch.nn.vec_layers import channel_equi_vec_normalize
 from livingscenes_tpu_torch.ops import _cuda, cuda_icp, cuda_scale
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 CUDA_RUNTIME_STAND_IN = r'''// A stand-in for <cuda_runtime.h> that lets a host compiler build the port's
-// kernels (livingscenes_tpu_torch/csrc/*.cu) and run them on CPU threads.
+// kernels (livingscenes_tpu_torch/csrc/*.cu) and run them on the CPU.
 // It covers only what those sources use. The blocks of a launch run one
 // after another, or, launched by cudaLaunchKernelEx in clusters, one
 // cluster after another with the blocks of a cluster at the same time; the
-// threads of a block are OS threads that meet at barriers: __syncthreads()
+// threads of a block meet at barriers: __syncthreads()
 // is a barrier over the block, cluster.sync() one over the cluster's
 // blocks, a warp shuffle a pair of barriers over the warp's 32 threads, so
-// every thread of a warp must reach a shuffle, as on the card. atomicAdd on a float is a
+// every thread of a warp must reach a shuffle, as on the card. The
+// threads are fibers that the launching OS thread runs in turns, each
+// until it meets a barrier (a thread that spins on another's write without
+// a barrier never lets it run). They never overlap, so a plain += where
+// the kernel needs an atomic loses no update here: the race check below
+// names it instead, as it names any two plain stores to one word by two
+// threads of a block that no barrier orders. atomicAdd on a float is a
 // compare-and-swap loop on a std::atomic_ref (on a float4 four of them),
 // on an unsigned a fetch_add;
 // atomicMax on an unsigned a compare-and-swap loop;
@@ -69,16 +80,18 @@ CUDA_RUNTIME_STAND_IN = r'''// A stand-in for <cuda_runtime.h> that lets a host 
 // wrote shows up as a wrong answer. This says nothing about whether nvcc
 // accepts a source, about alignment faults, or about speed.
 #pragma once
+#include <sys/mman.h>
+
 #include <algorithm>
 #include <atomic>
-#include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <functional>
 #include <memory>
-#include <thread>
+#include <unordered_map>
 #include <vector>
 
 struct dim3 {
@@ -107,13 +120,12 @@ inline float2 make_float2(float x, float y) { return float2{x, y}; }
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorRace = 999 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, int, int) {
   return cudaSuccess;
 }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 using std::max;
 using std::min;
@@ -146,28 +158,225 @@ inline unsigned atomicMax(unsigned* address, unsigned v) {
 }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 
+#ifndef __x86_64__
+#error "the stand-in switches between its fibers by x86-64 assembly"
+#endif
+
+// Stand-in code that the CUDA threads run and whose stores are its own
+// bookkeeping, not the kernel's: left out of the race check below.
+#define CUDA_EMULATION_UNTRACKED __attribute__((no_sanitize_thread))
+
 namespace cuda_emulation {
+
+// A barrier of the fibers below: each arriving fiber but the last waits
+// until the phase moves; the last moves it and goes on.
+struct Barrier {
+  explicit Barrier(int n) : expected(n) {}
+  void arrive_and_wait();
+  int expected, arrived = 0;
+  unsigned phase = 0;
+};
 
 // One block of the running cluster: its barrier, its warps' barriers and
 // shuffle slots, its dynamic shared memory.
 struct Block {
-  std::unique_ptr<std::barrier<>> barrier;
-  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::unique_ptr<Barrier> barrier;
+  std::vector<std::unique_ptr<Barrier>> warps;
   std::vector<uint64_t> slots;
   float* shared = nullptr;
 };
 
-inline thread_local dim3 thread_idx, block_idx;
-inline thread_local unsigned block_rank = 0;  // within the cluster
-inline thread_local Block* block = nullptr;
-inline thread_local float* dynamic_shared = nullptr;
+inline dim3 thread_idx, block_idx;
+inline unsigned block_rank = 0;  // within the cluster
+inline Block* block = nullptr;
+inline float* dynamic_shared = nullptr;
 inline dim3 grid_dim, block_dim;
 inline unsigned cluster_size = 1;
 inline std::vector<Block> cluster_blocks;
-inline std::unique_ptr<std::barrier<>> cluster_barrier;
+inline std::unique_ptr<Barrier> cluster_barrier;
 
-inline void poison(float* shared, size_t bytes) {
+// Switching between fibers: the callee-saved registers pushed on the
+// fiber's own stack, which holds its stack pointer. (ucontext's
+// swapcontext, which also saves and sets the signal mask by a system call,
+// made the emulated tests 4.3 times slower.)
+extern "C" void cuda_emulation_switch(void** save_sp, void* load_sp);
+__asm__(R"(
+  .pushsection .text
+  .weak cuda_emulation_switch
+  .hidden cuda_emulation_switch
+  .type cuda_emulation_switch, @function
+cuda_emulation_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+  .size cuda_emulation_switch, .-cuda_emulation_switch
+  .popsection
+)");
+struct Context {
+  void* sp = nullptr;
+};
+inline void switch_context(Context& from, Context& to) {
+  cuda_emulation_switch(&from.sp, to.sp);
+}
+// A stack whose first switch "returns" into entry, which must not return.
+inline void make_context(Context& c, void* stack, size_t size, void (*entry)()) {
+  uintptr_t top = (reinterpret_cast<uintptr_t>(stack) + size) & ~uintptr_t(15);
+  void** sp = reinterpret_cast<void**>(top);
+  *--sp = nullptr;  // entry's own return address, never used
+  *--sp = reinterpret_cast<void*>(entry);
+  for (int i = 0; i < 6; ++i) *--sp = nullptr;  // rbp, rbx, r12-r15
+  c.sp = sp;
+}
+
+// A CUDA thread: a fiber with a stack of its own, run by the scheduler in
+// `run_threads` on the launching OS thread until it waits at a barrier or
+// ends.
+struct Fiber {
+  Context ctx;
+  dim3 tidx, bidx;
+  unsigned rank = 0;
+  const Barrier* waiting = nullptr;
+  unsigned wait_phase = 0;
+  bool done = false;
+};
+constexpr size_t kFiberStack = size_t(1) << 20;
+inline std::vector<Fiber> fibers;
+inline std::vector<void*> stacks;  // kept from launch to launch
+inline size_t current = 0;
+inline Context scheduler;
+inline const std::function<void()>* fiber_main = nullptr;
+
+CUDA_EMULATION_UNTRACKED inline void Barrier::arrive_and_wait() {
+  if (++arrived == expected) {
+    arrived = 0;
+    ++phase;
+    return;
+  }
+  Fiber& f = fibers[current];
+  f.waiting = this;
+  f.wait_phase = phase;
+  f.bidx = block_idx;
+  switch_context(f.ctx, scheduler);
+}
+
+CUDA_EMULATION_UNTRACKED inline void fiber_entry() {
+  (*fiber_main)();
+  fibers[current].done = true;
+  switch_context(fibers[current].ctx, scheduler);  // never resumed
+  std::abort();
+}
+
+// The race check. The sources are built with -fsanitize=thread, which
+// makes the compiler call a hook before every plain store, and linked
+// without that sanitizer's runtime: the hooks are below. Two plain stores
+// to one 4-byte word by two threads of a block with no barrier between
+// them (both at the same phase of the block's and the cluster's barrier
+// and, in one warp, of the warp's) are a race on the card, where the
+// threads run at the same time: one store may be lost, as in a sum made by
+// += where it needs an atomic. Atomics are not plain
+// stores; a thread's own stack is not watched; stores of different blocks
+// are not compared (here they run in turn and share their shared memory).
+// A launch's first races are printed, and cudaGetLastError() then returns
+// cudaErrorRace.
+struct Store {
+  const Block* blk;
+  unsigned bx, by, thread, block_phase, cluster_phase, warp_phase;
+};
+inline std::unordered_map<uintptr_t, Store> stores;  // by word, this launch
+inline bool watching = false, in_hook = false;
+inline unsigned races = 0;
+
+CUDA_EMULATION_UNTRACKED inline void on_store(const void* p, size_t n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (!watching || in_hook || a - reinterpret_cast<uintptr_t>(stacks[current]) < kFiberStack)
+    return;
+  in_hook = true;  // the map's own code is instrumented too
+  const unsigned t = thread_idx.x;
+  const Store s{block, block_idx.x, block_idx.y, t, block->barrier->phase,
+                cluster_barrier->phase, block->warps[t / 32]->phase};
+  for (uintptr_t w = a & ~uintptr_t(3); w < a + n; w += 4) {
+    auto [it, fresh] = stores.try_emplace(w, s);
+    const Store& o = it->second;
+    if (!fresh && o.thread != t && o.blk == s.blk && o.bx == s.bx && o.by == s.by &&
+        o.block_phase == s.block_phase && o.cluster_phase == s.cluster_phase &&
+        (o.thread / 32 != t / 32 || o.warp_phase == s.warp_phase) && races++ < 4)
+      std::fprintf(stderr,
+                   "cuda_emulation: race: threads %u and %u of block (%u, %u) "
+                   "store to %p with no barrier between\n",
+                   o.thread, t, s.bx, s.by, reinterpret_cast<void*>(w));
+    it->second = s;
+  }
+  in_hook = false;
+}
+
+// Run `thread_main` as thread t of block t / threads of the cluster, for
+// each of the n = threads * cluster threads. The scheduler runs every
+// fiber that is not waiting until it waits or ends, in turns that go
+// through the threads forward and backward alternately, so that a read of
+// another thread's write that lacks its barrier sees the poison or an old
+// value in one of the two orders.
+CUDA_EMULATION_UNTRACKED inline void run_threads(size_t n, unsigned threads,
+                        const std::function<void()>& thread_main) {
+  fiber_main = &thread_main;
+  while (stacks.size() < n) {
+    void* st = mmap(nullptr, kFiberStack, PROT_READ | PROT_WRITE,
+                    MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE | MAP_STACK, -1, 0);
+    if (st == MAP_FAILED) std::abort();
+    stacks.push_back(st);
+  }
+  fibers.assign(n, Fiber());
+  for (size_t t = 0; t < n; ++t) {
+    Fiber& f = fibers[t];
+    f.tidx = dim3(t % threads);
+    f.rank = t / threads;
+    make_context(f.ctx, stacks[t], kFiberStack, fiber_entry);
+  }
+  size_t live = n;
+  for (bool forward = true; live; forward = !forward) {
+    bool ran = false;
+    for (size_t k = 0; k < n; ++k) {
+      const size_t i = forward ? k : n - 1 - k;
+      Fiber& f = fibers[i];
+      if (f.done || (f.waiting && f.waiting->phase == f.wait_phase)) continue;
+      f.waiting = nullptr;
+      current = i;
+      thread_idx = f.tidx;
+      block_idx = f.bidx;
+      block_rank = f.rank;
+      block = &cluster_blocks[f.rank];
+      dynamic_shared = block->shared;
+      watching = true;
+      switch_context(scheduler, f.ctx);
+      watching = false;
+      ran = true;
+      live -= f.done;
+    }
+    if (!ran) {
+      std::fprintf(stderr, "cuda_emulation: every thread waits at a barrier\n");
+      std::abort();
+    }
+  }
+  fibers.clear();
+}
+
+CUDA_EMULATION_UNTRACKED inline void poison(float* shared, size_t bytes) {
   for (size_t i = 0; i < bytes / sizeof(float); ++i) shared[i] = NAN;
+}
+
+CUDA_EMULATION_UNTRACKED inline void enter_block(unsigned bx, unsigned by) {
+  block_idx = dim3(bx, by);
 }
 
 // Run `body` once per (block, thread) of the launch. The clusters of
@@ -175,6 +384,7 @@ inline void poison(float* shared, size_t bytes) {
 // one cluster run at the same time.
 inline void launch(dim3 grid, dim3 block_shape, size_t shared_bytes,
                    const std::function<void()>& body, unsigned cluster = 1) {
+  stores.clear();
   grid_dim = grid;
   block_dim = block_shape;
   cluster_size = cluster;
@@ -183,33 +393,26 @@ inline void launch(dim3 grid, dim3 block_shape, size_t shared_bytes,
   cluster_blocks.clear();
   cluster_blocks.resize(cluster);
   for (Block& blk : cluster_blocks) {
-    blk.barrier = std::make_unique<std::barrier<>>(threads);
+    blk.barrier = std::make_unique<Barrier>(threads);
     for (int w = 0; w < warps; ++w)
-      blk.warps.push_back(
-          std::make_unique<std::barrier<>>(std::min(32, threads - 32 * w)));
+      blk.warps.push_back(std::make_unique<Barrier>(std::min(32, threads - 32 * w)));
     blk.slots.assign(warps * 32, 0);
     blk.shared = static_cast<float*>(
         std::aligned_alloc(64, (shared_bytes / 64 + 2) * 64));
     poison(blk.shared, shared_bytes);
   }
-  cluster_barrier = std::make_unique<std::barrier<>>(threads * cluster);
-  std::vector<std::thread> pool;
-  for (unsigned t = 0; t < threads * cluster; ++t)
-    pool.emplace_back([&, t] {
-      thread_idx = dim3(t % threads);
-      block_rank = t / threads;
-      block = &cluster_blocks[block_rank];
-      dynamic_shared = block->shared;
-      for (unsigned by = 0; by < grid.y; ++by)
-        for (unsigned bx = 0; bx < grid.x; bx += cluster) {
-          block_idx = dim3(bx + block_rank, by);
-          body();
-          cluster_barrier->arrive_and_wait();
-          if (thread_idx.x == 0) poison(block->shared, shared_bytes);
-          cluster_barrier->arrive_and_wait();
-        }
-    });
-  for (auto& th : pool) th.join();
+  cluster_barrier = std::make_unique<Barrier>(threads * cluster);
+  const std::function<void()> thread_main = [&] {
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; bx += cluster) {
+        enter_block(bx + block_rank, by);
+        body();
+        cluster_barrier->arrive_and_wait();
+        if (thread_idx.x == 0) poison(block->shared, shared_bytes);
+        cluster_barrier->arrive_and_wait();
+      }
+  };
+  run_threads(size_t(threads) * cluster, threads, thread_main);
   for (Block& blk : cluster_blocks) std::free(blk.shared);
   cluster_blocks.clear();
 }
@@ -253,6 +456,46 @@ inline T exchange(T v, int source_lane) {
 }
 
 }  // namespace cuda_emulation
+
+inline cudaError_t cudaGetLastError() {
+  if (!cuda_emulation::races) return cudaSuccess;
+  cuda_emulation::races = 0;
+  return cudaErrorRace;
+}
+
+// The hooks that -fsanitize=thread calls: stores go to the race check,
+// loads to nothing, atomics do what they stand for.
+#define CUDA_EMULATION_HOOK extern "C" __attribute__((weak, no_sanitize_thread))
+CUDA_EMULATION_HOOK void __tsan_init() {}
+CUDA_EMULATION_HOOK void __tsan_func_entry(void*) {}
+CUDA_EMULATION_HOOK void __tsan_func_exit() {}
+CUDA_EMULATION_HOOK void __tsan_read1(void*) {}
+CUDA_EMULATION_HOOK void __tsan_read2(void*) {}
+CUDA_EMULATION_HOOK void __tsan_read4(void*) {}
+CUDA_EMULATION_HOOK void __tsan_read8(void*) {}
+CUDA_EMULATION_HOOK void __tsan_read16(void*) {}
+CUDA_EMULATION_HOOK void __tsan_read_range(void*, unsigned long) {}
+CUDA_EMULATION_HOOK void __tsan_write1(void* p) { cuda_emulation::on_store(p, 1); }
+CUDA_EMULATION_HOOK void __tsan_write2(void* p) { cuda_emulation::on_store(p, 2); }
+CUDA_EMULATION_HOOK void __tsan_write4(void* p) { cuda_emulation::on_store(p, 4); }
+CUDA_EMULATION_HOOK void __tsan_write8(void* p) { cuda_emulation::on_store(p, 8); }
+CUDA_EMULATION_HOOK void __tsan_write16(void* p) { cuda_emulation::on_store(p, 16); }
+CUDA_EMULATION_HOOK void __tsan_write_range(void* p, unsigned long n) {
+  cuda_emulation::on_store(p, n);
+}
+CUDA_EMULATION_HOOK int __tsan_atomic32_load(const volatile int* a, int) {
+  return __atomic_load_n(a, __ATOMIC_SEQ_CST);
+}
+CUDA_EMULATION_HOOK int __tsan_atomic32_fetch_add(volatile int* a, int v, int) {
+  return __atomic_fetch_add(a, v, __ATOMIC_SEQ_CST);
+}
+CUDA_EMULATION_HOOK int __tsan_atomic32_compare_exchange_weak(volatile int* a, int* c,
+                                                              int v, int, int) {
+  return __atomic_compare_exchange_n(a, c, v, true, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST);
+}
+CUDA_EMULATION_HOOK void __tsan_atomic_thread_fence(int) {
+  __atomic_thread_fence(__ATOMIC_SEQ_CST);
+}
 
 #define threadIdx cuda_emulation::thread_idx
 #define blockIdx cuda_emulation::block_idx
@@ -394,33 +637,74 @@ def rewrite_for_host(text):
                   text, flags=re.S)
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """The kernels' library built for the host, bound like the real one."""
+# the compiler's hooks on every plain store, for the stand-in's race check
+# (-Wno-tsan: its note that fences are not checked)
+RACE_CHECK = ["-fsanitize=thread", "-Wno-tsan"]
+
+
+def emulated_library():
+    """Build the kernels' library for the host once for every test file and
+    xdist worker: into a directory of livingscenes_tpu_torch/_build/ (listed
+    in .gitignore) named by a hash of the stand-in, the rewritten sources
+    and the compiler's command, under a file lock. Each source compiles on
+    its own process, all at once, with the same flags; then one link
+    without -fsanitize=thread (the stand-in has its hooks)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the kernels for the host")
-    work = tmp_path_factory.mktemp("cuda_emulation")
-    (work / "cuda_runtime.h").write_text(CUDA_RUNTIME_STAND_IN)
+    files = {"cuda_runtime.h": CUDA_RUNTIME_STAND_IN}
     # the pipeline primitives (cp.async) and the cluster of
     # cooperative_groups are in the same stand-in
     for header in ("cuda_pipeline.h", "cooperative_groups.h"):
-        (work / header).write_text('#pragma once\n#include "cuda_runtime.h"\n')
-    for path in _cuda.CSRC.iterdir():
+        files[header] = '#pragma once\n#include "cuda_runtime.h"\n'
+    for path in sorted(_cuda.CSRC.iterdir()):
         name = path.name.replace(".cu", ".cpp") if path.suffix == ".cu" else path.name
-        (work / name).write_text(rewrite_for_host(path.read_text()))
+        files[name] = rewrite_for_host(path.read_text())
+    flags = ["-std=c++20", "-O1", "-fPIC", "-pthread"]
+    digest = hashlib.sha256(" ".join([gxx] + flags + RACE_CHECK).encode())
+    for name, text in sorted(files.items()):
+        digest.update(name.encode() + b"\0" + text.encode() + b"\0")
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = _cuda.BUILD_DIR / f"emulated_{digest.hexdigest()[:16]}"
     lib = work / "libemulated.so"
-    cmd = [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-           f"-I{work}", "-o", str(lib)]
-    cmd += [str(work / s.replace(".cu", ".cpp")) for s in _cuda.SOURCES]
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    assert done.returncode == 0, done.stderr[-4000:]
+    with open(work.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            shutil.rmtree(work, ignore_errors=True)
+            work.mkdir()
+            for name, text in files.items():
+                (work / name).write_text(text)
+            objs = [work / s.replace(".cu", ".o") for s in _cuda.SOURCES]
+            procs = [subprocess.Popen(
+                [gxx, *flags, *RACE_CHECK, f"-I{work}", "-c", "-o", str(obj),
+                 str(work / s.replace(".cu", ".cpp"))],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for s, obj in zip(_cuda.SOURCES, objs)]
+            logs = [p.communicate()[0] for p in procs]
+            failed = [log for p, log in zip(procs, logs) if p.returncode]
+            assert not failed, failed[0][-4000:]
+            tmp = work / "libemulated.so.tmp"
+            done = subprocess.run([gxx, *flags, "-shared", "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True, text=True)
+            assert done.returncode == 0, done.stderr[-4000:]
+            os.replace(tmp, lib)
+    return lib
+
+
+def bind(lib):
+    """The library at `lib`, its entry points typed like the real one's."""
     handle = ctypes.CDLL(str(lib))
     for name, argtypes in _cuda._SIGNATURES.items():
         fn = getattr(handle, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return handle
+
+
+@pytest.fixture(scope="module")
+def emulated():
+    """The kernels' library built for the host, bound like the real one."""
+    return bind(emulated_library())
 
 
 @pytest.fixture
@@ -461,6 +745,56 @@ def test_rewrite_for_host():
             "[&] { k<8>(x, f(y, z)); });") in out
     assert "cuda_emulation::launch(B, 32 * CW, bytes, [&] { g<P, CW>(x); });" in out
     assert "<<<" not in out
+
+
+# A scatter of one block's edges into a few sums, the pattern of the
+# sources' gradients in the backward kernels: with atomicAdd, and with the
+# fault of a plain read-modify-write in its place.
+PLANTED_SCATTER = r'''#include <cuda_runtime.h>
+
+__global__ void scatter(const int* idx, const float* vals, float* sums,
+                        int edges, int atomic) {
+  for (int e = 0; e < edges; ++e) {
+    const int i = threadIdx.x * edges + e;
+    if (atomic) atomicAdd(&sums[idx[i]], vals[i]);
+    else sums[idx[i]] += vals[i];
+  }
+}
+
+extern "C" int planted_scatter(const int* idx, const float* vals, float* sums,
+                               int threads, int edges, int atomic) {
+  scatter<<<1, threads, 0, 0>>>(idx, vals, sums, edges, atomic);
+  return (int)cudaGetLastError();
+}
+'''
+
+
+def test_stand_in_finds_lost_updates(tmp_path):
+    """The fibers never overlap, so the planted fault (a sum made without
+    atomics) gives the right sum here; the race check must still name it
+    (cudaErrorRace, 999), in every launch, and let the atomic scatter by."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the kernels for the host")
+    (tmp_path / "cuda_runtime.h").write_text(CUDA_RUNTIME_STAND_IN)
+    (tmp_path / "scatter.cpp").write_text(rewrite_for_host(PLANTED_SCATTER))
+    obj, lib = tmp_path / "scatter.o", tmp_path / "libscatter.so"
+    for cmd in ([gxx, "-std=c++20", "-O1", "-fPIC", *RACE_CHECK, f"-I{tmp_path}", "-c",
+                 "-o", str(obj), str(tmp_path / "scatter.cpp")],
+                [gxx, "-shared", "-o", str(lib), str(obj)]):
+        done = subprocess.run(cmd, capture_output=True, text=True)
+        assert done.returncode == 0, done.stderr[-4000:]
+    fn = ctypes.CDLL(str(lib)).planted_scatter
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    threads, edges, n_sums = 64, 8, 4
+    idx = np.random.default_rng(0).integers(0, n_sums, threads * edges).astype(np.int32)
+    vals = np.ones(threads * edges, np.float32)
+    want = np.bincount(idx, minlength=n_sums).astype(np.float32)
+    for atomic, rc in ((1, 0), (0, 999), (1, 0), (0, 999)):
+        sums = np.zeros(n_sums, np.float32)
+        assert fn(idx.ctypes.data, vals.ctypes.data, sums.ctypes.data,
+                  threads, edges, atomic) == rc
+        np.testing.assert_array_equal(sums, want)
 
 
 @pytest.mark.parametrize(

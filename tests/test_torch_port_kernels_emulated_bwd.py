@@ -23,6 +23,7 @@ from livingscenes_tpu_torch.nn.vec_layers import channel_equi_vec_normalize
 from livingscenes_tpu_torch.ops import _cuda
 from test_torch_port_kernels_emulated import (  # noqa: F401 (fixtures)
     assert_all_close, assert_close, emulated, f32, on_host)
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 
 def graph_with_repeats(rng, n_src, n_dst, K):

@@ -38,6 +38,7 @@ from livingscenes_tpu_torch.ops import _cuda
 from test_torch_port_kernels_emulated import (  # noqa: F401 (fixtures)
     assert_all_close, assert_close, emulated, f32, on_host)
 from test_torch_port_kernels_emulated_bwd import graph_with_repeats
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 
 def layer0_inputs(rng, N, K, O):

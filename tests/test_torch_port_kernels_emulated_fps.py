@@ -18,6 +18,7 @@ from livingscenes_tpu_torch.ops import cuda_fps
 from livingscenes_tpu_torch.ops.fps import farthest_point_sampling
 from test_torch_port_kernels_emulated import (  # noqa: F401 (fixtures)
     emulated, f32, on_host)
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("N,k,masked", [(200, 50, False), (300, 64, True), (40, 60, True)])

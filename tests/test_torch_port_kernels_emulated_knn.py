@@ -24,6 +24,7 @@ from livingscenes_tpu_torch.ops import cuda_knn
 from livingscenes_tpu_torch.ops.knn import knn
 from test_torch_port_kernels_emulated import (  # noqa: F401 (fixtures)
     emulated, f32, lattice, on_host)
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("Nq,Np,D,k", [(70, 100, 3, 16), (33, 150, 48, 16), (20, 20, 96, 7)])

@@ -19,6 +19,7 @@ import torch
 from livingscenes_tpu_torch.ops import cuda_knn
 from test_torch_port_kernels_emulated import (  # noqa: F401 (fixtures)
     emulated, f32, lattice, on_host)
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("tied", [False, True])

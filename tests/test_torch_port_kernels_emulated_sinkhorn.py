@@ -33,6 +33,7 @@ from livingscenes_tpu_torch.ops import cuda_sinkhorn
 from livingscenes_tpu_torch.ops.sinkhorn import eps_annealing_schedule
 from test_torch_port_kernels_emulated import (  # noqa: F401 (fixtures)
     emulated, f32, on_host)
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 SINKHORN_SHAPES = [
     # N, M, schedule

@@ -20,6 +20,7 @@ from livingscenes_tpu_torch.ops import cuda_sinkhorn
 from test_torch_port_kernels_emulated import (  # noqa: F401 (fixtures)
     emulated, f32, on_host)
 from test_torch_port_kernels_emulated_sinkhorn import check_forward
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 
 def test_sinkhorn_kernel_past_staging(on_host):

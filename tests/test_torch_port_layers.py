@@ -18,6 +18,7 @@ from livingscenes_tpu.solver.matcher import sequential_matcher as jmatch
 from livingscenes_tpu_torch.nn import vec_layers as vl
 from livingscenes_tpu_torch.nn.edge_conv import fused_edge_kv
 from livingscenes_tpu_torch.solver.matcher import sequential_matcher
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 ACT_J = lambda x: jax.nn.leaky_relu(x, 0.2)
 ACT_T = vl.leaky_relu(0.2)

@@ -14,6 +14,7 @@ import torch
 
 from livingscenes_tpu import se3 as jse3
 from livingscenes_tpu_torch import se3
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-12, atol=1e-14)
 

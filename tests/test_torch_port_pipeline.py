@@ -38,6 +38,7 @@ from livingscenes_tpu_torch.solver.registration import (
     kabsch_from_codes,
     solve_pairwise_registration,
 )
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 SMALL = dict(c_dim=32, feat_dim=(8, 8, 16, 16, 16, 32, 32), num_knn=8, n_pcl=256)
 S, O, N = 2, 4, 384

@@ -50,6 +50,7 @@ from livingscenes_tpu_torch.solver.pipeline import (
     extract_scene_meshes,
 )
 from livingscenes_tpu_torch.train.data import SyntheticShapeDataset
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "weights", "plateau_r4_selected.ckpt")
 N_PCL = 512

@@ -18,6 +18,7 @@ from livingscenes_tpu.ops.pallas_scale import top_k_mean_pairwise_distance as j_
 from livingscenes_tpu_torch.models.convert import params_from_jax
 from livingscenes_tpu_torch.models.shape_prior import ShapePrior, ShapePriorConfig
 from livingscenes_tpu_torch.ops import cuda_scale
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 NARROW = dict(c_dim=32, num_layers=4, feat_dim=(16, 16, 32, 32),
               down_sample_layers=(2,), down_sample_factor=(2,),

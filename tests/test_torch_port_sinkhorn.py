@@ -22,6 +22,7 @@ import torch
 from livingscenes_tpu.ops import pallas_sinkhorn as jps
 from livingscenes_tpu.ops import sinkhorn as jsk
 from livingscenes_tpu_torch.ops import cuda_sinkhorn, sinkhorn
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 F64 = dict(rtol=1e-9, atol=1e-12)
 

@@ -30,6 +30,7 @@ from livingscenes_tpu_torch.train import run as prun
 from livingscenes_tpu_torch.train.data import SyntheticShapeDataset, batch_iterator
 from livingscenes_tpu_torch.train.trainer import (
     Trainer, TrainerConfig, make_lr_schedule)
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 TINY = dict(c_dim=32, num_layers=4, feat_dim=(16, 16, 32, 32),
             down_sample_layers=(2,), down_sample_factor=(2,),

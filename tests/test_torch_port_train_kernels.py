@@ -28,6 +28,7 @@ from livingscenes_tpu.nn.edge_conv import fused_edge_kv
 from livingscenes_tpu.nn.vec_layers import VecLNA, channel_equi_vec_normalize
 from livingscenes_tpu.ops.knn import gather_neighbors
 from livingscenes_tpu_torch.nn import cuda_attention, cuda_layer0
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 
 def act(x):

@@ -22,6 +22,7 @@ from livingscenes_tpu.models import shape_prior as jsp
 from livingscenes_tpu_torch import device as port_device
 from livingscenes_tpu_torch.models import convert
 from livingscenes_tpu_torch.models.shape_prior import ShapePrior
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "weights", "production_r5_selected.ckpt")

@@ -22,6 +22,7 @@ import torch
 
 from livingscenes_tpu.recon import grid as jg
 from livingscenes_tpu_torch.recon import grid as tg
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 THRESHOLD = 0.02
 RES0 = 8

@@ -28,6 +28,7 @@ from livingscenes_tpu.recon.mesh import Mesh as JMesh
 from livingscenes_tpu_torch.native import bindings as tnative
 from livingscenes_tpu_torch.recon import extractor as text
 from livingscenes_tpu_torch.recon.mesh import Mesh as TMesh
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -121,7 +122,8 @@ def test_mesh_methods_match_jax(tmp_path):
     assert pts.shape == nrm.shape == (7, 3) and not pts.any()
 
 
-@pytest.mark.parametrize("name", ["isosurface.cpp", "simplify.cpp"])
+@pytest.mark.parametrize("name", ["isosurface.cpp", "simplify.cpp", "kdtree.cpp",
+                                  "inside_mesh.cpp", "voxelize.cpp"])
 def test_sources_equal_the_jax_package(name):
     with open(os.path.join(ROOT, "livingscenes_tpu", "native", "src", name), "rb") as f:
         want = f.read()

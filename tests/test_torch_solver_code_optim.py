@@ -17,6 +17,7 @@ from livingscenes_tpu.solver import code_optim as jco
 from livingscenes_tpu_torch.models.convert import params_from_jax
 from livingscenes_tpu_torch.models.shape_prior import ShapePrior, ShapePriorConfig
 from livingscenes_tpu_torch.solver import code_optim as tco
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 NARROW = dict(c_dim=32, num_layers=4, feat_dim=(16, 16, 32, 32),
               down_sample_layers=(2,), down_sample_factor=(2,),

@@ -23,6 +23,7 @@ from livingscenes_tpu.ops import sinkhorn as jsink
 from livingscenes_tpu.solver import matcher as jmatch
 from livingscenes_tpu_torch.ops import sinkhorn as tsink
 from livingscenes_tpu_torch.solver import matcher as tmatch
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 S, T, C = 7, 6, 16
@@ -191,11 +192,16 @@ def _imports(path):
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port, and chip_smoke.py, named in its source and
-    imported in a fresh interpreter in which jax and the JAX package cannot
-    be imported."""
+    """Every module of the port (the eval modules named), chip_smoke.py and
+    the port's scripts/torch_*.py, named in their source and imported in a
+    fresh interpreter in which jax and the JAX package cannot be
+    imported."""
     pkg = os.path.join(ROOT, "livingscenes_tpu_torch")
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    # the port's scripts: chip_smoke.py and scripts/torch_*.py
+    scripts = sorted(os.path.join(ROOT, "scripts", n)
+                     for n in os.listdir(os.path.join(ROOT, "scripts"))
+                     if n.startswith("torch_") and n.endswith(".py"))
+    files = [os.path.join(ROOT, "chip_smoke.py")] + scripts
     modules = []
     for dirpath, _, names in os.walk(pkg):
         for name in sorted(names):
@@ -209,6 +215,10 @@ def test_port_imports_nothing_of_jax():
         found = banned & set(_imports(path))
         assert not found, f"{path} imports {found}"
     assert len(modules) > 30
+    for name in ("se3", "utils.io", "native.bindings", "eval", "eval.metrics",
+                 "eval.mesh_eval", "eval.flyingshape", "eval.rescan3r",
+                 "eval.run_flyingshape", "eval.run_3rscan"):
+        assert f"livingscenes_tpu_torch.{name}" in modules, name
     code = ("import sys\n"
             f"for name in {sorted(banned)!r}:\n"
             "    sys.modules[name] = None\n"
@@ -216,6 +226,10 @@ def test_port_imports_nothing_of_jax():
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "import chip_smoke\n"
+            "import importlib.util\n"
+            f"for path in {scripts!r}:\n"
+            "    spec = importlib.util.spec_from_file_location('script', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(banned)!r} and sys.modules[m] is not None]\n"
             "assert not bad, bad\n"

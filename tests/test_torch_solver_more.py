@@ -34,6 +34,7 @@ from livingscenes_tpu_torch.solver import code_optim as tco
 from livingscenes_tpu_torch.solver import joint as tjoint
 from livingscenes_tpu_torch.solver import more as tmore
 from livingscenes_tpu_torch.solver import registration as treg
+from torch_threads import intra_op_share  # noqa: F401 (autouse)
 
 SMALL = dict(c_dim=32, num_layers=4, feat_dim=(16, 16, 32, 32),
              down_sample_layers=(2,), down_sample_factor=(2,),
