@@ -116,7 +116,16 @@
    the JAX package's scores within the bounds of its docstring: the
    float32 record docs/demo_trained_eval_r5_96inst_jax_cpu.json, and for
    the refined relocalization its recall and float32's floors.
-10. Prints a `kernels` JSON line (all 14 kernels), a line of headline
+10. Training on the production ShapeNet configuration and the mesh-vertex
+   refinement (phase_shapenet): a tree of 14 procedural objects made with
+   the port's tools/preprocess.py, train.run.main on
+   configs/production_shapenet.yaml from the r5 checkpoint for 10 steps
+   (exact launch counts, no plain version), the step timed and split, one
+   step against the CPU as trained and with rot_aug, decoder_bf16 and the
+   class head, a visualize_sample firing, the anomaly mode naming a
+   poisoned module, and 30 refinement steps on r5 meshes (card against
+   CPU). Its bounds are in its docstring.
+11. Prints a `kernels` JSON line (all 14 kernels), a line of headline
    figures, the card line, and as its last line {"ok": true, "device":
    {...}}.
 
@@ -175,6 +184,33 @@ TRAIN_ITEMS = 128  # synthetic training items (the config has 8192)
 TRAIN_TIMED_STEPS = 10  # timed steps after 3 of warm-up
 TRAIN_FRESH_STEPS = 30  # steps from a fresh init whose loss must fall
 TRAIN_CPU_BATCH = 8  # batch of the card-against-CPU step
+# the card-against-CPU step's bounds: loss rtol, each component's gradient
+# norm rtol, the smallest cosine of a parameter's gradient
+CPU_CHECK_TOL = (1e-4, 1e-3, 0.999)
+# decoder_bf16 rounds each of the decoder's nine layers to bfloat16 (8 bits
+# of mantissa, 3.9e-3 a step): cuBLAS and the CPU sum in other orders, and
+# an output that rounds the other way moves by one such step
+CPU_CHECK_TOL_BF16 = (1e-2, 5e-2, 0.99)
+SHAPENET_CONFIG = os.path.join(ROOT, "configs", "production_shapenet.yaml")
+SHAPENET_STEPS = 10  # steps of train.run.main on the ShapeNet tree
+# Rows of each category's one train and one val object in the split CSV: a
+# training batch is 64 items and a validation batch 8, and the batch
+# iterator drops a short batch (7 items would never make one).
+SHAPENET_TRAIN_ROWS = 10
+SHAPENET_VAL_ROWS = 2
+SHAPENET_VIEWS = 12  # depth views an object (the config's dep_total_view)
+# uniform and near-surface samples an object: tools/preprocess.py writes
+# 100,000 of each; cut for the phase's time (the tree's build and the
+# batches' reads)
+SHAPENET_SAMPLES = 20000
+SHAPENET_TIMED_STEPS = 5  # timed steps (and split steps) after 3 of warm-up
+SHAPENET_GRID = 64  # isosurface grid of a procedural mesh
+REFINE_MESH_STEPS = 30  # refinement_step of the mesh-vertex refinement check
+REFINE_MESHES = 4  # procedural shapes meshed and refined on the card
+# the card's refined vertices against the CPU's from the same mesh and draws,
+# the largest difference over the box size (1.1): each step moves a vertex
+# by at most sqrt(10) lr = 3.2e-4 a coordinate, 9.5e-3 in 30 steps
+REFINE_TOL = 1e-4
 # kernel launches of one training step: FPS at layers 2, 4, 5, a kNN graph
 # per layer, each fused layer forward and backward (the layer-0 backward's
 # edge pass and its fold; the mean-edge and the attention backward's edge
@@ -3710,7 +3746,7 @@ def phase_training(torch, report, profile: bool):
         train_ds, _ = train_run.build_datasets(cfg)
         batches = batch_iterator(train_ds, trainer.cfg.batch_size, seed=1)
         result.update(time_training_steps(torch, trainer, state, batches, profile))
-        result["cpu_check"] = training_cpu_check(torch, trainer, next(batches))
+        result["cpu_check"] = training_cpu_check(torch, trainer.model, next(batches))
 
         # checkpoint round trip on the card
         trainer.save_checkpoint(state, "roundtrip")
@@ -3751,12 +3787,14 @@ def phase_training(torch, report, profile: bool):
             f"({times['bound_by']})")
 
 
-def time_training_steps(torch, trainer, state, batches, profile: bool):
-    """Median ms of a training step (host clock, ended by a sync) and of its
-    parts, each ended by a sync: the batch (from the RAM cache to the card),
-    the forward (loss), the backward (autograd.grad), the optimizer (clip and
-    Adam); peak memory over the timed steps. With `profile`, three steps
-    under torch.profiler."""
+def time_training_steps(torch, trainer, state, batches, profile: bool,
+                        n_timed=TRAIN_TIMED_STEPS):
+    """Median ms of a training step over n_timed steps after 3 of warm-up
+    (host clock, ended by a sync; the batch made before) and of its parts
+    over n_timed more, each ended by a sync: the batch (made on the host
+    and moved to the card), the forward (loss), the backward
+    (autograd.grad), the optimizer (clip and Adam); peak memory over the
+    timed steps. With `profile`, three steps under torch.profiler."""
     whole, parts = [], {"data": [], "forward": [], "backward": [], "optimizer": []}
 
     def split_step():
@@ -3777,7 +3815,7 @@ def time_training_steps(torch, trainer, state, batches, profile: bool):
         mark()
         return np.diff(marks) * 1e3
 
-    for i in range(3 + TRAIN_TIMED_STEPS):
+    for i in range(3 + n_timed):
         b = next(batches)
         torch.cuda.synchronize()
         if i == 3:
@@ -3788,7 +3826,7 @@ def time_training_steps(torch, trainer, state, batches, profile: bool):
         if i >= 3:
             whole.append((time.perf_counter() - t0) * 1e3)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for _ in range(TRAIN_TIMED_STEPS):
+    for _ in range(n_timed):
         for key, ms in zip(parts, split_step()):
             parts[key].append(float(ms))
     step_ms = float(np.median(whole))
@@ -3818,35 +3856,40 @@ def time_training_steps(torch, trainer, state, batches, profile: bool):
     return out
 
 
-def training_cpu_check(torch, trainer, batch):
+def training_cpu_check(torch, model, batch, tag="training", rotations=None,
+                       tol=CPU_CHECK_TOL, rows=None):
     """One step's loss and gradients at batch TRAIN_CPU_BATCH, card against
-    CPU from the same parameters and batch, dropout and the centre jitter
-    off (the loss in eval mode, no generator), on clouds whose kNN graphs
-    and FPS picks come out equal on both sides. A cloud whose graph swaps a
-    near-tie turns its codes by up to 1e-2 (ROADMAP.md Queue C, "Codes at a
-    tie"), which moves the decoder's gradient past any rounding tolerance:
-    such a cloud is named with the first layer that differs and replaced
-    by the next cloud of the batch. Held: the loss to rtol 1e-4, each
-    component's gradient norm to rtol 1e-3, and the cosine between the
-    card's and the CPU's gradient of every parameter to 0.999 (parameters
-    whose gradient is under 1e-6 of their component's norm, whose direction
-    is rounding, are left out)."""
+    CPU from the same parameters and batch (numpy arrays), dropout and the
+    centre jitter off (the loss in eval mode, no generator), on clouds whose
+    kNN graphs and FPS picks come out equal on both sides; with `rotations`
+    (B, 3, 3) the same rotations on both sides (rot_aug). A cloud whose
+    graph swaps a near-tie turns its codes by up to 1e-2 (ROADMAP.md Queue
+    C, "Codes at a tie"), which moves the decoder's gradient past any
+    rounding tolerance: such a cloud is named with the first layer that
+    differs and replaced by the next cloud of the batch. Held, by `tol`
+    (CPU_CHECK_TOL): the loss to rtol 1e-4, each component's gradient norm
+    to rtol 1e-3, and the cosine between the card's and the CPU's gradient
+    of every parameter to 0.999 (parameters whose gradient is under 1e-6 of
+    their component's norm, whose direction is rounding, are left out).
+    `rows`: the clouds to start from (default the first TRAIN_CPU_BATCH),
+    e.g. those an earlier check on the same batch kept."""
     from livingscenes_tpu_torch.models.sim3recon import SIM3Recon
 
-    model = trainer.model
     cpu = SIM3Recon(model.config, model.loss_cfg, device="cpu")
     cpu.prior.load_state_dict(model.prior.state_dict())
 
     def loss_and_grads(m, dev, rows):
         b = {k: torch.as_tensor(v[rows], device=dev) for k, v in batch.items()}
+        rot = None if rotations is None else torch.as_tensor(rotations[rows], device=dev)
         with record_graphs() as graphs:
-            loss, _ = m.loss(b, None, train=False)
+            loss, _ = m.loss(b, None, train=False, rotations=rot)
         named = [(k, p) for k, p in m.prior.named_parameters()]
         grads = torch.autograd.grad(loss, [p for _, p in named])
         return (float(loss.detach()),
                 {k: g.double().cpu() for (k, _), g in zip(named, grads)}, graphs.calls)
 
-    rows, spare, swapped = list(range(TRAIN_CPU_BATCH)), TRAIN_CPU_BATCH, {}
+    rows = list(range(TRAIN_CPU_BATCH)) if rows is None else list(rows)
+    spare, swapped = max(rows) + 1, {}
     for _ in range(4):
         t0 = time.perf_counter()
         loss_cpu, g_cpu, graphs_cpu = loss_and_grads(cpu, "cpu", rows)
@@ -3860,10 +3903,10 @@ def training_cpu_check(torch, trainer, batch):
         n_new = len(rows) - len(kept)
         rows, spare = kept + list(range(spare, spare + n_new)), spare + n_new
     else:
-        raise AssertionError(f"training: no batch of equal graphs; swaps {swapped}")
+        raise AssertionError(f"{tag}: no batch of equal graphs; swaps {swapped}")
     rel_loss = abs(loss_card - loss_cpu) / abs(loss_cpu)
     norms, worst_cos, worst_name = {}, 1.0, None
-    for comp in ("encoder", "decoder"):
+    for comp in sorted({k.split(".")[0] for k in g_cpu}):
         keys = [k for k in g_cpu if k.startswith(comp + ".")]
         n_cpu = float(torch.sqrt(sum(torch.sum(g_cpu[k] ** 2) for k in keys)))
         n_card = float(torch.sqrt(sum(torch.sum(g_card[k] ** 2) for k in keys)))
@@ -3875,18 +3918,313 @@ def training_cpu_check(torch, trainer, batch):
             cos = float(a @ b / (a.norm() * b.norm()))
             if cos < worst_cos:
                 worst_cos, worst_name = cos, k
-    log(f"training: card vs cpu, one step at batch {TRAIN_CPU_BATCH} (clouds {rows}; "
+    log(f"{tag}: card vs cpu, one step at batch {TRAIN_CPU_BATCH} (clouds {rows}; "
         "replaced for a graph that differs: "
         + (", ".join(f"cloud {r} at {f}" for r, f in swapped.items()) or "none")
         + f"): loss {loss_card:.7g} vs {loss_cpu:.7g} (rel {rel_loss:.3g}); gradient norms "
         + ", ".join(f"{c} {v['card']:.6g} vs {v['cpu']:.6g} (rel {v['rel']:.3g})"
                     for c, v in norms.items())
         + f"; smallest cosine {worst_cos:.6f} ({worst_name}) (cpu run {cpu_s:.1f} s)")
-    if rel_loss > 1e-4 or any(v["rel"] > 1e-3 for v in norms.values()) or worst_cos < 0.999:
-        raise AssertionError("training: card and CPU gradients differ")
-    return {"batch": TRAIN_CPU_BATCH, "clouds": rows, "replaced": swapped,
+    loss_rtol, norm_rtol, min_cos = tol
+    if (rel_loss > loss_rtol or any(v["rel"] > norm_rtol for v in norms.values())
+            or worst_cos < min_cos):
+        raise AssertionError(f"{tag}: card and CPU gradients differ beyond {tol}")
+    return {"batch": TRAIN_CPU_BATCH, "clouds": rows, "replaced": swapped, "tol": tol,
             "loss_rel": rel_loss, "grad_norms": norms, "min_cosine": worst_cos,
             "min_cosine_param": worst_name}
+
+
+def procedural_mesh(kind: int, rng):
+    """A watertight mesh of one of train/data.py's analytic SDFs (0 box, 1
+    ellipsoid, 2 capsule, 3 torus; sizes from rng), extracted with the
+    port's isosurface on a SHAPENET_GRID^3 grid over [-0.6, 0.6]^3."""
+    from livingscenes_tpu_torch.native.bindings import marching_isosurface
+    from livingscenes_tpu_torch.recon.mesh import Mesh
+    from livingscenes_tpu_torch.train import data
+
+    n = SHAPENET_GRID
+    g = np.linspace(-0.6, 0.6, n)
+    p = np.stack(np.meshgrid(g, g, g, indexing="ij"), axis=-1).reshape(-1, 3)
+    if kind == 0:
+        sdf = data._sdf_box(p, rng.uniform(0.15, 0.45, 3))
+    elif kind == 1:
+        sdf = data._sdf_ellipsoid(p, rng.uniform(0.2, 0.45, 3))
+    elif kind == 2:
+        a = rng.uniform(-0.3, 0.3, 3)
+        sdf = data._sdf_capsule(p, a, -a, rng.uniform(0.08, 0.2))
+    else:
+        sdf = data._sdf_torus(p, rng.uniform(0.25, 0.35), rng.uniform(0.06, 0.12))
+    verts, faces = marching_isosurface(-sdf.reshape(n, n, n).astype(np.float32), 0.0)
+    return Mesh((verts / (n - 1) * 1.2 - 0.6).astype(np.float32), faces)
+
+
+def build_shapenet_tree(root, categories):
+    """Two procedural objects for each category, object j of category c a
+    mesh of kind (c + j) % 4, preprocessed in turn by the port's
+    tools/preprocess.py (30,000 surface samples, SHAPENET_SAMPLES uniform and
+    SHAPENET_SAMPLES near-surface ones, SHAPENET_VIEWS depth views of 240 x
+    240); and the split CSV: the first object of each category in train
+    (SHAPENET_TRAIN_ROWS rows), the second in val (SHAPENET_VAL_ROWS rows).
+    Returns (split CSV path, objects). (Worker processes were slower: the
+    kd-tree and containment queries already take every core.)"""
+    from livingscenes_tpu_torch.tools.preprocess import preprocess_mesh
+
+    n_obj = 0
+    for c, cat in enumerate(categories):
+        for j in range(2):
+            rng = np.random.default_rng(1000 + 2 * c + j)
+            preprocess_mesh(procedural_mesh((c + j) % 4, rng),
+                            os.path.join(root, cat, f"obj{j}"), n_uni=SHAPENET_SAMPLES,
+                            n_nss=SHAPENET_SAMPLES, n_views=SHAPENET_VIEWS, seed=2 * c + j)
+            n_obj += 1
+    rows = [f"{cat},obj0,train" for cat in categories for _ in range(SHAPENET_TRAIN_ROWS)]
+    rows += [f"{cat},obj1,val" for cat in categories for _ in range(SHAPENET_VAL_ROWS)]
+    split_csv = os.path.join(root, "split.csv")
+    with open(split_csv, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return split_csv, n_obj
+
+
+def labelled_batch(ds, categories, idx):
+    """The items idx of a ShapeNet dataset stacked, with "class" the index
+    of each item's category in `categories`."""
+    items = [ds[int(i)] for i in idx]
+    batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
+    batch["class"] = np.array([categories.index(ds.items[int(i)][0]) for i in idx],
+                              np.float32)
+    return batch
+
+
+def phase_shapenet(torch, report):
+    """Training on the production ShapeNet configuration
+    (configs/production_shapenet.yaml: shapenet_new2, input_mode dep with 2-8
+    of 12 depth views, seven categories, the full-width model, batch 64,
+    1024 points, 1024 + 1024 queries) and the mesh-vertex refinement, on the
+    card. The repository holds no ShapeNet data, so a tree is built on the
+    host first (build_shapenet_tree; its seconds are logged).
+    1. train.run.main from the r5 checkpoint for SHAPENET_STEPS steps with
+       only data_root, shapenet_split_fn and log_dir overridden, under
+       forbid_plain: launches exactly SHAPENET_STEPS x TRAIN_STEP_LAUNCHES,
+       a finite last loss. Then the step timed and split (data: the items
+       read from disk and stacked, and the batch moved to the card;
+       forward; backward; optimizer), with its peak memory.
+    2. One step at TRAIN_CPU_BATCH on a ShapeNet batch, card against CPU
+       (training_cpu_check): as trained, with rot_aug (the same rotations
+       on both sides), with decoder_bf16 (CPU_CHECK_TOL_BF16), and with the
+       class head (use_cls, seven categories; labels the items' category
+       index).
+    3. One visualize_sample firing (viz_iter_interval 1) must write its OBJ
+       and PNG files; in anomaly mode a NaN planted in the encoder's conv_c
+       weight must raise an error naming that module and parameter (conv_c
+       runs after the last kNN and FPS, so no kernel indexes by a NaN).
+    4. The refinement: REFINE_MESHES shapes of make_shape_scenes encoded
+       with the r5 checkpoint, meshed at the shipped MeshExtractorConfig and
+       refined for REFINE_MESH_STEPS steps (draws from a generator on the
+       card): ms a step and faces a mesh; the mean |sigmoid(logit) -
+       threshold| at the face centroids must fall against the unrefined
+       mesh; the first mesh's refined vertices against the CPU port's from
+       the same mesh and draws within REFINE_TOL of the box size; and
+       MeshExtractor(refinement_step=...).generate_from_codes, the entry
+       point, under torch.no_grad() gives those vertices scaled and moved by
+       the code's s and t."""
+    import shutil
+    import tempfile
+
+    from livingscenes_tpu_torch.models.sim3recon import SIM3Recon
+    from livingscenes_tpu_torch.se3 import random_rotation
+    from livingscenes_tpu_torch.train import run as train_run
+    from livingscenes_tpu_torch.train.config import apply_overrides, load_config
+    from livingscenes_tpu_torch.train.data import batch_iterator
+    from livingscenes_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="lstpu_shapenet_")
+    result = {}
+    try:
+        categories = list(load_config(SHAPENET_CONFIG)["dataset"]["categories"])
+        t0 = time.perf_counter()
+        split_csv, n_obj = build_shapenet_tree(os.path.join(tmp, "data"), categories)
+        tree_s = time.perf_counter() - t0
+        log(f"shapenet: {n_obj} procedural objects preprocessed in {tree_s:.1f} s "
+            f"(30000 surface, {SHAPENET_SAMPLES} uniform, {SHAPENET_SAMPLES} near-surface "
+            f"samples, cut from 100000 each for time; {SHAPENET_VIEWS} views each)")
+        overrides = [f"dataset.data_root={tmp}/data", f"dataset.shapenet_split_fn={split_csv}",
+                     f"logging.log_dir={tmp}/run"]
+        argv = ["--config", SHAPENET_CONFIG, "--init-from", CKPT,
+                "--total-iter", str(SHAPENET_STEPS)]
+        for ov in overrides:
+            argv += ["--override", ov]
+        t0 = time.perf_counter()
+        with forbid_plain():
+            (trainer, state), launches = counted(lambda: train_run.main(argv))
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = {k: v for k, v in launches.items() if v}
+        want = {k: SHAPENET_STEPS * v for k, v in TRAIN_STEP_LAUNCHES.items()}
+        if launches != want:
+            raise AssertionError(f"shapenet: launches {launches}, expected {want}")
+        with open(os.path.join(tmp, "run", "metrics.jsonl")) as f:
+            last = [json.loads(line) for line in f][-1]
+        if last["step"] != SHAPENET_STEPS or not all(
+                np.isfinite(last[k]) for k in ("batch_loss", "grad_norm")):
+            raise AssertionError(f"shapenet: last log {last}")
+        log(f"shapenet: train.run.main, {SHAPENET_STEPS} steps from the r5 checkpoint in "
+            f"{main_s:.1f} s: launches as expected; step {last['step']}: batch_loss "
+            f"{last['batch_loss']:.5g}, grad_norm {last['grad_norm']:.5g}")
+        cfg = apply_overrides(load_config(SHAPENET_CONFIG), overrides)
+        train_ds, val_ds = train_run.build_datasets(cfg)
+        result.update(tree_s=tree_s, objects=n_obj, train_items=len(train_ds),
+                      val_items=len(val_ds), main_s=main_s, launches=launches,
+                      last_log=last)
+        batches = batch_iterator(train_ds, trainer.cfg.batch_size, seed=1)
+        result.update(time_training_steps(torch, trainer, state, batches, False,
+                                          n_timed=SHAPENET_TIMED_STEPS))
+
+        # card against CPU, as trained and with each option
+        model = trainer.model
+        idx = np.random.default_rng(5).permutation(len(train_ds))[:3 * TRAIN_CPU_BATCH]
+        batch = labelled_batch(train_ds, categories, idx)
+        plain = {k: v for k, v in batch.items() if k != "class"}
+        checks = {"trained": training_cpu_check(torch, model, plain, "shapenet")}
+        rot = random_rotation(torch.Generator().manual_seed(11), (len(idx),)).numpy()
+        replace = dataclasses.replace
+        variants = (("rot_aug", model.config, replace(model.loss_cfg, rot_aug=True)),
+                    ("decoder_bf16", model.config,
+                     replace(model.loss_cfg, decoder_bf16=True)),
+                    ("cls_head", replace(model.config, use_cls=True,
+                                         num_cates=len(categories)), model.loss_cfg))
+        for name, prior_cfg, loss_cfg in variants:
+            other = SIM3Recon(prior_cfg, loss_cfg, device="cuda")
+            other.prior.load_state_dict(model.prior.state_dict(), strict=name != "cls_head")
+            checks[name] = training_cpu_check(
+                torch, other, batch if name == "cls_head" else plain, f"shapenet {name}",
+                rotations=rot if name == "rot_aug" else None,
+                tol=CPU_CHECK_TOL_BF16 if name == "decoder_bf16" else CPU_CHECK_TOL,
+                rows=checks["trained"]["clouds"])
+            del other
+        result["cpu_checks"] = checks
+
+        # one visualize_sample firing, then the anomaly mode
+        viz_cfg = replace(trainer.cfg, viz_iter_interval=1, log_dir=f"{tmp}/viz",
+                          checkpoint_iter=0)
+        val_factory = lambda: batch_iterator(val_ds, max(2, trainer.cfg.batch_size // 8),
+                                             seed=1)
+        step = state.step + 1
+        Trainer(model, viz_cfg).run(state, batches, val_factory, total_iter=step)
+        viz = sorted(os.listdir(f"{tmp}/viz/viz"))
+        if viz != [f"input_{step}.png", f"recon_{step}.obj", f"recon_{step}.png"]:
+            raise AssertionError(f"shapenet: visualize_sample wrote {viz}")
+        log(f"shapenet: visualize_sample at step {step} wrote {viz}")
+        name = "encoder.conv_c.lin.weight"
+        param = dict(model.prior.named_parameters())[name]
+        saved = param.detach().clone()
+        anomaly = Trainer(model, replace(trainer.cfg, anomaly=True, log_dir=f"{tmp}/anomaly"))
+        with torch.no_grad():
+            param.view(-1)[0] = float("nan")
+        try:
+            anomaly.train_step(anomaly.init_state(), next(batches))
+            raise AssertionError("shapenet: anomaly mode let a NaN parameter through")
+        except RuntimeError as e:
+            message = str(e)
+        finally:
+            with torch.no_grad():
+                param.copy_(saved)
+        if "conv_c.lin:VecLinear" not in message or name not in message:
+            raise AssertionError(f"shapenet: the anomaly report names no module: {message}")
+        log(f"shapenet: {message[:300]}")
+        result["viz_files"], result["anomaly"] = viz, message
+        del trainer, state, model, anomaly
+        torch.cuda.empty_cache()
+
+        result["refinement"] = refinement_check(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"shapenet: phase {result['phase_s']:.1f} s")
+    report["shapenet"] = result
+
+
+def refinement_check(torch):
+    """Part 4 of phase_shapenet: the mesh-vertex refinement on the card."""
+    from livingscenes_tpu_torch.models.convert import load_flax_checkpoint, params_from_jax
+    from livingscenes_tpu_torch.models.shape_prior import (
+        ShapePrior, ShapePriorConfig, slice_codes)
+    from livingscenes_tpu_torch.ops.cuda_fps import fps_auto
+    from livingscenes_tpu_torch.recon.extractor import (
+        MeshExtractor, MeshExtractorConfig, dirichlet_draws, refine_mesh_vertices)
+
+    state = params_from_jax(load_flax_checkpoint(CKPT))
+    model = ShapePrior(ShapePriorConfig(pallas_attention=True), device="cuda")
+    model.load_state_dict(state)
+    ref, _ = make_shape_scenes(np.random.default_rng(3), 1)
+    pc = fps_auto(torch.as_tensor(ref[0, :REFINE_MESHES], device="cuda"), N_PCL)[0]
+    with torch.no_grad():
+        codes = model.encode(pc)
+    cfg = MeshExtractorConfig(refinement_step=REFINE_MESH_STEPS)
+    plain_ext = MeshExtractor(model.occupancy_logits, dataclasses.replace(cfg, refinement_step=0))
+
+    def deviation(field, codes, verts, faces):
+        p = torch.as_tensor(verts[faces].mean(axis=1), dtype=torch.float32,
+                            device=codes["s"].device)
+        with torch.no_grad():
+            return float(torch.mean(torch.abs(
+                torch.sigmoid(field(p[None], codes)[0]) - cfg.threshold)))
+
+    rows = []
+    for i in range(REFINE_MESHES):
+        c = slice_codes(codes, i)
+        can = dict(c, s=torch.ones_like(c["s"]), t=torch.zeros_like(c["t"]))
+        grid, _ = plain_ext.compute_grid(can)
+        mesh = plain_ext.extract_from_grid(grid.cpu().numpy())
+        if mesh.is_empty:
+            raise AssertionError(f"refinement: shape {i} gave no mesh")
+        eps = dirichlet_draws(torch.Generator(device="cuda").manual_seed(i),
+                              REFINE_MESH_STEPS, len(mesh.faces))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refined = refine_mesh_vertices(model.occupancy_logits, can, mesh.vertices,
+                                       mesh.faces, REFINE_MESH_STEPS, cfg.threshold,
+                                       cfg.refinement_lr, eps=eps)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / REFINE_MESH_STEPS
+        refined = refined.cpu().numpy()
+        before = deviation(model.occupancy_logits, can, mesh.vertices, mesh.faces)
+        after = deviation(model.occupancy_logits, can, refined, mesh.faces)
+        row = {"faces": len(mesh.faces), "ms_per_step": ms, "dev_before": before,
+               "dev_after": after,
+               "moved_max": float(np.abs(refined - mesh.vertices).max())}
+        if not (np.isfinite(refined).all() and after < before):
+            raise AssertionError(f"refinement: shape {i}: {row}")
+        if i == 0:
+            cpu = ShapePrior(ShapePriorConfig(pallas_attention=True), device="cpu")
+            cpu.load_state_dict(state)
+            t0 = time.perf_counter()
+            on_cpu = refine_mesh_vertices(
+                cpu.occupancy_logits, {k: v.cpu() for k, v in can.items()}, mesh.vertices,
+                mesh.faces, REFINE_MESH_STEPS, cfg.threshold, cfg.refinement_lr,
+                eps=eps.cpu()).numpy()
+            row["cpu_s"] = time.perf_counter() - t0
+            row["cpu_max_diff_over_box"] = float(np.abs(refined - on_cpu).max()) / cfg.box_size
+            # the entry point, under no_grad, as the solver calls it
+            with torch.no_grad():
+                entry = MeshExtractor(model.occupancy_logits, cfg).generate_from_codes(
+                    c, refine_eps=eps)
+            s, t = float(c["s"].reshape(-1)[0]), c["t"].reshape(3).cpu().numpy()
+            row["entry_point_diff"] = float(np.abs(entry.vertices - (refined * s + t)).max())
+            if (row["cpu_max_diff_over_box"] > REFINE_TOL
+                    or not np.array_equal(entry.faces, mesh.faces)
+                    or row["entry_point_diff"] > 1e-5 * max(abs(s), 1.0)):
+                raise AssertionError(f"refinement: shape 0 against the CPU: {row}")
+        log(f"refinement: shape {i}: {row['faces']} faces, {ms:.2f} ms a step, mean "
+            f"|p - {cfg.threshold}| at the face centroids {before:.6g} -> {after:.6g}, "
+            f"moved up to {row['moved_max']:.3g}"
+            + (f"; against the CPU up to {row['cpu_max_diff_over_box']:.3g} of the box "
+               f"(CPU {row['cpu_s']:.1f} s), entry point {row['entry_point_diff']:.3g}"
+               if i == 0 else ""))
+        rows.append(row)
+    return {"steps": REFINE_MESH_STEPS, "meshes": rows,
+            "ms_per_step": float(np.median([r["ms_per_step"] for r in rows])),
+            "faces": float(np.mean([r["faces"] for r in rows]))}
 
 
 def kernel_summary(torch, prof, wall_ms: float, named=()) -> dict:
@@ -4087,7 +4425,16 @@ def summary_line(report) -> str:
              f"{res['relocalization_optim']['recall_rre10']:.2f}), viou_sampled "
              f"{res['reconstruction']['viou_sampled_mean']:.2f}, sdf_recall "
              f"{res['reconstruction']['sdf_recall']:.2f}, phase {ev['phase_s']:.0f} s; ")
-    return (f"summary: {heads}{recon}{more}{evals}scene-pairs/s fused {report['pipeline']['scene_pairs_per_s']:.4f}, "
+    sn = report["shapenet"]
+    sn_split = ", ".join(f"{k} {v:.2f}" for k, v in sn["split_ms"].items())
+    rf = sn["refinement"]
+    shapenet = (f"shapenet: tree {sn['tree_s']:.1f} s, step {sn['step_ms']:.2f} ms "
+                f"({sn_split}), peak {sn['peak_mem_gb']:.2f} GB; refinement "
+                f"{rf['ms_per_step']:.2f} ms a step at {rf['faces']:.0f} faces, card vs cpu "
+                f"{rf['meshes'][0]['cpu_max_diff_over_box']:.3g} of the box, phase "
+                f"{sn['phase_s']:.0f} s; ")
+    return (f"summary: {heads}{recon}{more}{evals}{shapenet}"
+            f"scene-pairs/s fused {report['pipeline']['scene_pairs_per_s']:.4f}, "
             f"default {report['pipeline_default_config']['scene_pairs_per_s']:.4f}, "
             f"optim {report['pipeline_optim']['scene_pairs_per_s']:.4f}; training step "
             f"{tr['step_ms']:.2f} ms ({split}), peak {tr['peak_mem_gb']:.2f} GB; "
@@ -4159,6 +4506,7 @@ def main() -> int:
     phase_more(torch, report, state, scenes, args.profile)
     phase_eval(torch, report)
     phase_training(torch, report, args.profile)
+    phase_shapenet(torch, report)
 
     sources = {
         "fps": ("livingscenes_tpu_torch/csrc/fps.cu",

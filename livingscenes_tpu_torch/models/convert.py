@@ -130,8 +130,9 @@ def load_flax_checkpoint(path: str) -> Dict:
 
 
 def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
-    """Map the flax tree {"encoder": {...}, "decoder": {...}} to the port's
-    state dict (keys "encoder.V_list.0.lin.weight", "decoder.lin.0.v", ...).
+    """Map the flax tree {"encoder": {...}, "decoder": {...}[, "cls_head":
+    {...}]} to the port's state dict (keys "encoder.V_list.0.lin.weight",
+    "decoder.lin.0.v", "cls_head.lin0.kernel", ...).
     No tensor is transposed: VecLinear weights are stored (out, in) on both
     sides and the decoder's matrices (in, out) on both sides."""
     out: Dict[str, torch.Tensor] = {}
@@ -157,6 +158,9 @@ def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
             raise ValueError(f"unexpected decoder entry {name!r}")
         for leaf, value in layer.items():
             out[f"decoder.lin.{name[3:]}.{leaf}"] = torch.from_numpy(np.array(value))
+    for name, layer in params.get("cls_head", {}).items():
+        for leaf, value in layer.items():
+            out[f"cls_head.{name}.{leaf}"] = torch.from_numpy(np.array(value))
     return out
 
 

@@ -3,8 +3,8 @@ invariant SDF field, and code transport.
 
 Counterpart of livingscenes_tpu/models/shape_prior.py (`ShapePriorConfig`,
 `ShapePrior.normalize_input`, `encode`, `encode_fps`, `invariant_query`,
-`decode_sdf`, `occupancy_logits`, `slice_codes`, `transform_codes`), without
-the positional-encoding tail of the query.
+`decode_sdf`, `occupancy_logits`, `classify` with `ClsHead`, `slice_codes`,
+`transform_codes`), without the positional-encoding tail of the query.
 Codes are the dict {"z_so3": (B, C, 3), "z_inv": (B, C), "s": (B,),
 "t": (B, 1, 3)}. Two behaviours of the reference stay: a cloud of identical
 points gives NaN codes (its scale statistic is 0), and `t` is
@@ -52,6 +52,9 @@ class ShapePriorConfig:
     decoder_latent_in: tuple = (4,)
     sdf2occ_factor: float = -1.0
     n_pcl: int = 1024  # encoder input size
+    # the category classifier on z_inv (ClsHead)
+    use_cls: bool = False
+    num_cates: int = 7
     # The fused path (the JAX field's name): on the card the encoder's
     # layers run as fused CUDA kernels and `encode` takes the scale (and,
     # for N a multiple of min(256, N), the layer-0 graph) from a kernel; on
@@ -60,8 +63,27 @@ class ShapePriorConfig:
     pallas_attention: bool = False
 
 
+class ClsHead(nn.Module):
+    """The category classifier on the invariant embedding: Linear, Sigmoid,
+    Linear, Sigmoid, Linear (the reference's model_utils.py:131-146);
+    (B, c_dim) -> (B, num_cates) logits. The layers keep flax's names and
+    (in, out) kernels."""
+
+    def __init__(self, c_dim: int = 256, num_cates: int = 7):
+        super().__init__()
+        self.lin0 = Dense(c_dim, c_dim)
+        self.lin1 = Dense(c_dim, c_dim)
+        self.lin2 = Dense(c_dim, num_cates)
+
+    def forward(self, z_inv: torch.Tensor) -> torch.Tensor:
+        h = torch.sigmoid(self.lin0(z_inv))
+        h = torch.sigmoid(self.lin1(h))
+        return self.lin2(h)
+
+
 class ShapePrior(nn.Module):
-    """Encoder and decoder with their parameters, on one device.
+    """Encoder and decoder (and with `use_cls` the category head
+    `cls_head`) with their parameters, on one device.
 
     `device` defaults to the card and raises without one; pass
     `device="cpu"` to run on the CPU. Weights start uniform in
@@ -94,6 +116,7 @@ class ShapePrior(nn.Module):
             latent_in=c.decoder_latent_in,
             pe_dim=c.c_dim + 1,
         )
+        self.cls_head = ClsHead(c.c_dim, c.num_cates) if c.use_cls else None
         gen = torch.Generator().manual_seed(seed)
         for module in self.modules():
             if isinstance(module, (VecLinear, WNDense, Dense)):
@@ -219,15 +242,23 @@ class ShapePrior(nn.Module):
 
         `matmul_dtype` (e.g. torch.bfloat16): the invariant query is formed
         in the dtype of the query and codes, then it and the decoder's
-        float32 parameters are cast to `matmul_dtype` (a cached copy, see
-        _cast_decoder_state; the weight norm is taken of the cast copy) and
-        the output is cast back to the query's dtype. Parameters of another
-        dtype stay as they are, and the input is then promoted to theirs
-        after its cast."""
+        float32 parameters are cast to `matmul_dtype` (the weight norm is
+        taken of the cast copy) and the output is cast back to the query's
+        dtype. Parameters of another dtype stay as they are, and the input
+        is then promoted to theirs after its cast. Under grad mode, with
+        parameters that require a gradient, the cast is part of the graph
+        (training's decoder_bf16: the gradient reaches the float32
+        parameters); otherwise it is a cached detached copy (see
+        _cast_decoder_state)."""
         x = self.invariant_query(query, codes)
         if matmul_dtype is None:
             return self.decoder(x, generator)
-        state = self._cast_decoder_state(matmul_dtype)
+        params = dict(self.decoder.named_parameters())
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params.values()):
+            state = {k: p.to(matmul_dtype) if p.dtype == torch.float32 else p
+                     for k, p in params.items()}
+        else:
+            state = self._cast_decoder_state(matmul_dtype)
         h = x.to(matmul_dtype)
         param_dtype = next(iter(state.values())).dtype
         if param_dtype != matmul_dtype:
@@ -240,6 +271,12 @@ class ShapePrior(nn.Module):
         `matmul_dtype`: see decode_sdf."""
         return self.config.sdf2occ_factor * self.decode_sdf(
             query, codes, matmul_dtype=matmul_dtype)
+
+    def classify(self, codes: Codes) -> torch.Tensor:
+        """Category logits (B, num_cates) of the codes' z_inv."""
+        if self.cls_head is None:
+            raise ValueError("the model was built without use_cls=True")
+        return self.cls_head(codes["z_inv"])
 
 
 def slice_codes(codes: Codes, index) -> Codes:

@@ -11,14 +11,20 @@ toward 1:
 
 where errors below loss_th weigh loss_near_lambda and the others
 loss_far_lambda. `val_iou` is the occupancy IoU on eval points, the
-model-selection metric. Randomness (the centre jitter, then the decoder's
-dropout) comes from one `torch.Generator` the caller passes; with none, the
-loss is deterministic.
+model-selection metric. Randomness (with `rot_aug` the rotations, then the
+centre jitter, then the decoder's dropout) comes from one `torch.Generator`
+the caller passes; with none, the loss is deterministic.
 
-Not ported, off in every shipped config: `rot_aug` and `decoder_bf16`
-(raise NotImplementedError), and the class head (the port's
-ShapePriorConfig has no `use_cls`, so a batch's "class" is ignored, as JAX
-does without the head).
+Options, each off in every shipped config:
+- `rot_aug`: one uniform random rotation per cloud, applied to the inputs
+  and to the queries alike (the decoder reads the queries through the
+  rotation-invariant <q, z_so3>, so a query left unrotated would be
+  supervised at the wrong place); from the generator, or passed in.
+- `decoder_bf16`: the decoder's products in bfloat16 (decode_sdf's
+  matmul_dtype), the gradient reaching the float32 parameters.
+- the class head (ShapePriorConfig.use_cls) with a batch's "class"
+  labels: w_cls times the cross entropy of softmax(logits), the reference's
+  double softmax (sim3sdf_vanilla.py:340-347), with its accuracy.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import se3
 from .shape_prior import ShapePrior, ShapePriorConfig
 
 Batch = Dict[str, torch.Tensor]
@@ -46,6 +53,7 @@ class TrainLossConfig:
     center_aug_std: float = 0.05
     rot_aug: bool = False
     iou_threshold: float = 0.5
+    w_cls: float = 1.0
     decoder_bf16: bool = False
 
 
@@ -56,10 +64,6 @@ class SIM3Recon:
     def __init__(self, config: ShapePriorConfig | None = None,
                  loss_config: TrainLossConfig = TrainLossConfig(),
                  device=None, dtype: torch.dtype = torch.float32, seed: int = 0):
-        if loss_config.rot_aug:
-            raise NotImplementedError("rot_aug is not ported")
-        if loss_config.decoder_bf16:
-            raise NotImplementedError("decoder_bf16 is not ported")
         self.prior = ShapePrior(config, device=device, dtype=dtype, seed=seed)
         self.loss_cfg = loss_config
 
@@ -85,24 +89,37 @@ class SIM3Recon:
         return codes, pred_scale, centroid
 
     def loss(self, batch: Batch, generator: Optional[torch.Generator] = None,
-             train: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             train: bool = True, rotations: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(batch_loss, metrics) of a batch of tensors on the model's device:
         inputs (B, N, 3); points_uni (B, Qu, 3), points_uni_value (B, Qu);
-        points_nss (B, Qn, 3), points_nss_value (B, Qn). With `train` and a
-        generator the centre is jittered and the decoder drops out; the
-        decoder's mode is set to `train`."""
+        points_nss (B, Qn, 3), points_nss_value (B, Qn); with the class head
+        optionally "class" (B,). With `train` and a generator the centre is
+        jittered and the decoder drops out; the decoder's mode is set to
+        `train`. With `rot_aug` the clouds and queries are rotated by
+        `rotations` (B, 3, 3), or else by rotations drawn from the generator
+        first; with neither, they are not rotated."""
         cfg = self.loss_cfg
         self.prior.train(train)
+        inputs = batch["inputs"]
         query = torch.cat([batch["points_uni"], batch["points_nss"]], dim=1)
-        codes, pred_scale, centroid = self._encode_training(
-            batch["inputs"], generator, train)
+        if cfg.rot_aug and (rotations is not None or generator is not None):
+            if rotations is None:
+                rotations = se3.random_rotation(
+                    generator, (inputs.shape[0],), dtype=inputs.dtype,
+                    device=inputs.device)
+            R = rotations.to(inputs.dtype)
+            inputs = torch.einsum("bij,bnj->bni", R, inputs)
+            query = torch.einsum("bij,bnj->bni", R, query)
+        codes, pred_scale, centroid = self._encode_training(inputs, generator, train)
         loss_scale = torch.mean(torch.abs(pred_scale - 1.0))
         loss_center = torch.mean(torch.sum(torch.abs(centroid), dim=-1))
         error_center = torch.linalg.norm(centroid, dim=-1)
         sdf_gt = torch.cat([batch["points_uni_value"], batch["points_nss_value"]],
                            dim=1)
         sdf_hat = self.prior.decode_sdf(
-            query, codes, generator if train else None)
+            query, codes, generator if train else None,
+            matmul_dtype=torch.bfloat16 if cfg.decoder_bf16 else None)
 
         err = torch.abs(sdf_hat - sdf_gt)
         near = (err < cfg.loss_th).to(err.dtype).detach()
@@ -115,6 +132,15 @@ class SIM3Recon:
         nss_loss = torch.mean(loss_i[:, n_uni:]) if n_nss > 0 else zero
         batch_loss = (cfg.w_uni * uni_loss + cfg.w_nss * nss_loss
                       + cfg.w_s * loss_scale + cfg.w_t * loss_center)
+        cls_metrics = {}
+        if self.prior.cls_head is not None and "class" in batch:
+            probs = torch.softmax(self.prior.classify(codes), dim=-1)
+            logp = torch.log_softmax(probs, dim=-1)  # the double softmax
+            gt = batch["class"].long()
+            loss_cls = -torch.mean(torch.gather(logp, 1, gt[:, None]))
+            acc = torch.mean((torch.argmax(probs, dim=-1) == gt).to(err.dtype))
+            batch_loss = batch_loss + cfg.w_cls * loss_cls
+            cls_metrics = {"loss_cls": loss_cls, "metric_bs_cls_acc": acc}
         metrics = {
             "batch_loss": batch_loss,
             "loss_recon_uni": uni_loss,
@@ -126,6 +152,7 @@ class SIM3Recon:
             "metric_recon_nss_error": (torch.mean(err[:, n_uni:])
                                        if n_nss > 0 else zero),
             "scale_mean": torch.mean(pred_scale),
+            **cls_metrics,
         }
         return batch_loss, metrics
 

@@ -1,7 +1,8 @@
 """ctypes bindings of the port's host geometry library.
 
 Counterpart of livingscenes_tpu/native/bindings.py (`marching_isosurface`,
-`simplify_mesh`, `KDTree`, `check_mesh_contains`, `voxelize_mesh`), from
+`simplify_mesh`, `KDTree`, `check_mesh_contains`, `voxelize_mesh`, and the
+depth rasterizer that recon/render.py calls), from
 copies of its C++ sources in `src/`, which use the standard library only.
 The library is compiled with `g++` at the first call into
 `livingscenes_tpu_torch/_build/` (listed in `.gitignore`), under a name
@@ -37,7 +38,7 @@ _PKG = Path(__file__).resolve().parents[1]
 SRC = Path(__file__).resolve().parent / "src"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("isosurface.cpp", "simplify.cpp", "kdtree.cpp", "inside_mesh.cpp",
-           "voxelize.cpp")
+           "voxelize.cpp", "rasterize.cpp")
 FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
@@ -138,6 +139,11 @@ def get_lib() -> ctypes.CDLL:
             lib.inside_mesh_query.argtypes = [ctypes.c_void_p, f32p, i64, u8p]
             lib.inside_mesh_free.restype = None
             lib.inside_mesh_free.argtypes = [ctypes.c_void_p]
+
+            c_float, c_int = ctypes.c_float, ctypes.c_int
+            lib.rasterize_depth.restype = None
+            lib.rasterize_depth.argtypes = [f32p, i64, i64p, i64, c_float, c_float,
+                                            c_float, c_float, c_int, c_int, f32p]
             _lib = lib
     return _lib
 

@@ -312,11 +312,12 @@ def from_xyzquat(xyzquat: torch.Tensor) -> torch.Tensor:
 def random_rotation(generator: torch.Generator, batch_shape=(),
                     dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
     """Uniform random rotations (..., 3, 3) from normalised Gaussian
-    quaternions drawn from `generator` (on the CPU, then moved to
-    `device`)."""
-    q = torch.randn(tuple(batch_shape) + (4,), generator=generator, dtype=dtype)
+    quaternions drawn from `generator` (on the generator's device, then
+    moved to `device`)."""
+    q = torch.randn(tuple(batch_shape) + (4,), generator=generator, dtype=dtype,
+                    device=generator.device)
     q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
-    xyzquat = torch.cat([torch.zeros(q.shape[:-1] + (3,), dtype=dtype), q], dim=-1)
+    xyzquat = torch.cat([torch.zeros_like(q[..., :3]), q], dim=-1)
     return from_xyzquat(xyzquat)[..., :3, :3].to(device)
 
 

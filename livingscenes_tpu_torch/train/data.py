@@ -1,20 +1,23 @@
-"""Training data: the procedural shape dataset, its augmentations, and the
-host batch iterators.
+"""Training data: the procedural shape dataset, the preprocessed ShapeNet
+layout, their augmentations, and the host batch iterators.
 
-A copy of the synthetic half of livingscenes_tpu/train/data.py (numpy only;
-the port imports nothing of the JAX package): `AugmentConfig`,
-`SamplingAugConfig`, `sampling_with_aug_s1`, the scene-simulation and SIM(3)
-augmentations, the SDF primitives, `SyntheticShapeDataset` and
+A copy of livingscenes_tpu/train/data.py (numpy only; the port imports
+nothing of the JAX package): `AugmentConfig`, `SamplingAugConfig`,
+`sampling_with_aug_s1`, the scene-simulation and SIM(3) augmentations, the
+SDF primitives, `SyntheticShapeDataset`, `ShapeNetSDFDataset` and
 `batch_iterator` / `prefetch_iterator`. Every random draw is the JAX
 module's, in the same order, so the same seed gives bit-equal arrays
-(tests/test_torch_port_data.py). The RAM cache builds items in worker
-processes started with `spawn`. `ShapeNetSDFDataset` (the preprocessed
-ShapeNet layout) is not ported yet.
+(tests/test_torch_port_data.py, tests/test_torch_train_shapenet.py). The
+synthetic RAM cache builds items in worker processes started with `spawn`;
+the ShapeNet one loads the npz payloads on threads.
 """
 from __future__ import annotations
 
+import csv
 import dataclasses
-from typing import Dict, Iterator, List, Optional
+import glob
+import os
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -434,9 +437,222 @@ class SyntheticShapeDataset:
         }
 
 
+# ---------------------------------------------------------------------------
+# ShapeNet preprocessed layout reader
+# ---------------------------------------------------------------------------
+
+class ShapeNetSDFDataset:
+    """Reader of the preprocessed ShapeNet layout (the reference's
+    shapenet_new2.py:126-165, 278-307; tools/preprocess.py writes it):
+    data_root/<category>/<object_id>/{pointcloud.npz, points_uni.npz,
+    points_nss.npz[, dep_pcl_0.npz ...]}, or points.npz with packed
+    occupancies for `dataset_mode="occ"`; the split CSV has rows
+    (category, object_id, split), and without one every object directory
+    under the categories is taken.
+
+    `input_mode` "pcl" samples the inputs from pointcloud.npz, "dep" from a
+    random 2-8 (dep_min_use_view to dep_max_use_view) of the depth views
+    fused. `field_mode` "occ" binarizes the supervision (sdf <= 0).
+    Objects whose files are missing are dropped; `proportion` keeps a
+    random share; `class_balanced` resamples every category to the size
+    of the largest. Item idx draws from numpy's generator seeded with
+    seed * 7919 + idx.
+    """
+
+    def __init__(
+        self,
+        data_root: str,
+        split: str = "train",
+        split_csv: Optional[str] = None,
+        categories: Optional[Sequence[str]] = None,
+        n_pcl: int = 1024,
+        n_uni: int = 1024,
+        n_nss: int = 1024,
+        n_eval: int = 10000,
+        noise_std: float = 0.005,
+        input_mode: str = "pcl",
+        dataset_mode: str = "hybrid",
+        field_mode: str = "sdf",
+        dep_min_use_view: int = 2,
+        dep_max_use_view: int = 8,
+        aug: Optional[AugmentConfig] = None,
+        sampling_aug: Optional[SamplingAugConfig] = None,
+        class_balanced: bool = True,
+        proportion: float = 1.0,
+        ram_cache: bool = False,
+        cache_workers: int = 8,
+        seed: int = 0,
+    ):
+        if input_mode not in ("pcl", "dep"):
+            raise ValueError(f"input_mode {input_mode!r}: 'pcl' or 'dep'")
+        if dataset_mode not in ("hybrid", "occ"):
+            raise ValueError(f"dataset_mode {dataset_mode!r}: 'hybrid' or 'occ'")
+        if field_mode not in ("sdf", "occ"):
+            raise ValueError(f"field_mode {field_mode!r}: 'sdf' or 'occ'")
+        if dataset_mode == "occ" and field_mode != "occ":
+            # the occupancy layout carries binary occupancies only
+            raise ValueError("dataset_mode 'occ' supports only field_mode 'occ'")
+        self.root = data_root
+        self.n_pcl, self.n_uni, self.n_nss, self.n_eval = n_pcl, n_uni, n_nss, n_eval
+        self.noise_std = noise_std
+        self.input_mode = input_mode
+        self.dataset_mode = dataset_mode
+        self.field_mode = field_mode
+        self.dep_min_use_view = dep_min_use_view
+        self.dep_max_use_view = dep_max_use_view
+        self.aug = aug
+        self.sampling_aug = sampling_aug
+        self.seed = seed
+
+        if not os.path.isdir(data_root):
+            raise FileNotFoundError(
+                f"ShapeNet data root '{data_root}' not found. Preprocess "
+                "watertight meshes into it with "
+                "`python -m livingscenes_tpu_torch.tools.preprocess` (or use "
+                "dataset_name: synthetic for procedural training data).")
+        items: List[tuple] = []
+        if split_csv and os.path.exists(split_csv):
+            with open(split_csv) as f:
+                for row in csv.reader(f):
+                    if len(row) < 3:
+                        continue
+                    cat, oid, sp = row[0], row[1], row[2]
+                    if sp != split:
+                        continue
+                    if categories and cat not in categories:
+                        continue
+                    items.append((cat, oid))
+        else:
+            cats = categories or sorted(
+                d for d in os.listdir(data_root)
+                if os.path.isdir(os.path.join(data_root, d)))
+            for cat in cats:
+                for oid in sorted(os.listdir(os.path.join(data_root, cat))):
+                    items.append((cat, oid))
+
+        required = "points_uni.npz" if dataset_mode == "hybrid" else "points.npz"
+        items = [it for it in items
+                 if os.path.exists(os.path.join(data_root, it[0], it[1], required))]
+        if proportion < 1.0:
+            rng = np.random.default_rng(seed)
+            keep = max(1, int(len(items) * proportion))
+            items = [items[i] for i in rng.permutation(len(items))[:keep]]
+
+        if class_balanced and items:
+            by_cat: Dict[str, List[tuple]] = {}
+            for it in items:
+                by_cat.setdefault(it[0], []).append(it)
+            most = max(len(v) for v in by_cat.values())
+            rng = np.random.default_rng(seed + 1)
+            balanced = []
+            for v in by_cat.values():
+                reps = list(v) * (most // len(v))
+                extra = rng.choice(len(v), most - len(reps), replace=True)
+                balanced.extend(reps + [v[i] for i in extra])
+            items = balanced
+        self.items = items
+
+        # the npz payloads of every object, loaded on threads
+        self._cache: Optional[Dict[str, Dict[str, Dict[str, np.ndarray]]]] = None
+        if ram_cache and items:
+            from concurrent.futures import ThreadPoolExecutor
+
+            dirs = sorted({os.path.join(data_root, c, o) for c, o in items})
+            with ThreadPoolExecutor(max_workers=cache_workers) as ex:
+                self._cache = dict(ex.map(_load_npz_dir, dirs))
+
+    def _npz(self, d: str, name: str) -> Dict[str, np.ndarray]:
+        """{key: array} of d/name, each member read once (an NpzFile reads
+        a member anew on every access)."""
+        if self._cache is not None:
+            return self._cache[d][name]
+        return _load_npz(os.path.join(d, name))
+
+    def __len__(self):
+        return len(self.items)
+
+    def _load_input_cloud(self, d: str, rng) -> np.ndarray:
+        if self.input_mode == "dep":
+            if self._cache is not None:
+                views = sorted(f for f in self._cache[d] if f.startswith("dep_pcl_"))
+            else:
+                views = sorted(os.path.basename(v)
+                               for v in glob.glob(os.path.join(d, "dep_pcl_*.npz")))
+            if views:
+                k = rng.integers(self.dep_min_use_view,
+                                 min(self.dep_max_use_view, len(views)) + 1)
+                sel = rng.choice(len(views), k, replace=False)
+                return np.concatenate([self._npz(d, views[i])["pcl"] for i in sel])
+        return self._npz(d, "pointcloud.npz")["points"]
+
+    def __getitem__(self, idx: int) -> Batch:
+        cat, oid = self.items[idx]
+        d = os.path.join(self.root, cat, oid)
+        rng = np.random.default_rng(self.seed * 7919 + idx)
+
+        cloud = self._load_input_cloud(d, rng)
+        if self.sampling_aug is not None:
+            inputs = sampling_with_aug_s1(cloud, self.n_pcl, rng, self.sampling_aug)
+        else:
+            inputs = _uniform_sampling(cloud, self.n_pcl, rng)
+        inputs = inputs + rng.normal(0, self.noise_std, (self.n_pcl, 3))
+        if self.aug is not None and self.aug.use_augmentation:
+            if rng.random() < self.aug.aug_ratio:
+                inputs = augment_scene_sim(inputs, rng, self.aug)
+
+        if self.dataset_mode == "occ":
+            # packed binary occupancies and no near-surface set: the nss
+            # arrays are width 0, and the loss skips them
+            occ_data = self._npz(d, "points.npz")
+            pts = occ_data["points"]
+            occ = np.unpackbits(occ_data["occupancies"])[: len(pts)]
+            ui = rng.choice(len(pts), self.n_uni)
+            ei = rng.choice(len(pts), self.n_eval)
+            return {
+                "inputs": inputs.astype(np.float32),
+                "points_uni": pts[ui].astype(np.float32),
+                "points_uni_value": occ[ui].astype(np.float32),
+                "points_nss": np.zeros((0, 3), np.float32),
+                "points_nss_value": np.zeros((0,), np.float32),
+                "eval_points": pts[ei].astype(np.float32),
+                "eval_points_occ": occ[ei].astype(np.float32),
+            }
+
+        uni_data = self._npz(d, "points_uni.npz")
+        nss_data = self._npz(d, "points_nss.npz")
+        ui = rng.choice(len(uni_data["points"]), self.n_uni)
+        ni = rng.choice(len(nss_data["points"]), self.n_nss)
+        ei = rng.choice(len(uni_data["points"]), self.n_eval)
+        uni_sdf = uni_data["sdf"] if "sdf" in uni_data else uni_data["value"]
+        nss_sdf = nss_data["sdf"] if "sdf" in nss_data else nss_data["value"]
+        uni_val, nss_val = uni_sdf[ui], nss_sdf[ni]
+        if self.field_mode == "occ":
+            uni_val = (uni_val <= 0).astype(np.float32)
+            nss_val = (nss_val <= 0).astype(np.float32)
+        return {
+            "inputs": inputs.astype(np.float32),
+            "points_uni": uni_data["points"][ui].astype(np.float32),
+            "points_uni_value": uni_val.astype(np.float32),
+            "points_nss": nss_data["points"][ni].astype(np.float32),
+            "points_nss_value": nss_val.astype(np.float32),
+            "eval_points": uni_data["points"][ei].astype(np.float32),
+            "eval_points_occ": (uni_sdf[ei] < 0).astype(np.float32),
+        }
+
+
+def _load_npz(path: str) -> Dict[str, np.ndarray]:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _load_npz_dir(d: str):
+    """(d, {file name: {key: array}}) of every npz file in directory d."""
+    return d, {name: _load_npz(os.path.join(d, name))
+               for name in os.listdir(d) if name.endswith(".npz")}
+
 
 # ---------------------------------------------------------------------------
-# Batch iterator
+# Batch iterators
 # ---------------------------------------------------------------------------
 
 def batch_iterator(

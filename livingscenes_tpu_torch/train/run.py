@@ -10,7 +10,11 @@ Counterpart of livingscenes_tpu/train/run.py on one device (the card unless
 --init-from restores the parameters only (fresh Adam state, step 0, so the
 schedule restarts) from a flax checkpoint of the JAX package (its `params`
 tree; `opt_state` is ignored) or from a checkpoint of this trainer.
-Only the synthetic dataset is ported; data parallelism is not.
+The datasets are the synthetic one (`dataset_name: synthetic`) and the
+preprocessed ShapeNet layout (`shapenet_new2` or `shapenet`: `data_root`,
+`shapenet_split_fn`, `categories`, `input_mode`, ...; make a tree with
+`python -m livingscenes_tpu_torch.tools.preprocess`). Data parallelism is
+not ported.
 """
 from __future__ import annotations
 
@@ -24,8 +28,8 @@ from ..models.shape_prior import ShapePriorConfig
 from ..models.sim3recon import SIM3Recon, TrainLossConfig
 from .config import (apply_overrides, cfg_with_default, load_config,
                      prepare_log_dir)
-from .data import (AugmentConfig, SamplingAugConfig, SyntheticShapeDataset,
-                   batch_iterator, prefetch_iterator)
+from .data import (AugmentConfig, SamplingAugConfig, ShapeNetSDFDataset,
+                   SyntheticShapeDataset, batch_iterator, prefetch_iterator)
 from .logger import configure_logging
 from .trainer import Trainer, TrainerConfig
 
@@ -77,11 +81,11 @@ def build_model(cfg: dict, device=None) -> SIM3Recon:
 
 
 def build_datasets(cfg: dict):
-    """(train, val) synthetic datasets of the config."""
+    """(train, val) datasets of the config: ShapeNetSDFDataset's train and
+    val splits for dataset_name shapenet_new2 or shapenet, else synthetic
+    ones (seeds 0 and 1). Only the training set augments."""
     d = cfg.get("dataset", {})
-    name = d.get("dataset_name", "synthetic")
-    if name != "synthetic":
-        raise NotImplementedError(f"dataset {name!r} is not ported (synthetic only)")
+    shapenet = d.get("dataset_name", "synthetic") in ("shapenet_new2", "shapenet")
     aug = AugmentConfig(use_augmentation=d.get("use_augmentation", True),
                         aug_ratio=d.get("aug_ratio", 0.6))
     sampling_aug = None
@@ -101,16 +105,32 @@ def build_datasets(cfg: dict):
                 d.get("s1_halfspace_difference_range", (0.3, 1.0))),
         )
 
+    sizes = dict(n_pcl=d.get("n_pcl", 1024), n_uni=d.get("n_query_uni", 1024),
+                 n_nss=d.get("n_query_nss", 1024), noise_std=d.get("noise_std", 0.005))
+    if shapenet:
+        def make_shapenet(split, use_aug):
+            return ShapeNetSDFDataset(
+                data_root=d["data_root"], split=split,
+                split_csv=d.get("shapenet_split_fn"),
+                categories=d.get("categories"),
+                input_mode=d.get("input_mode", "pcl"),
+                dataset_mode=d.get("dataset_mode", "hybrid"),
+                field_mode=d.get("field_mode", "sdf"),
+                dep_min_use_view=d.get("dep_min_use_view", 2),
+                dep_max_use_view=d.get("dep_max_use_view", 8),
+                aug=aug if use_aug else None,
+                sampling_aug=sampling_aug if use_aug else None,
+                n_eval=d.get("n_query_eval", 10000), **sizes)
+
+        return make_shapenet("train", True), make_shapenet("val", False)
+
     def make(n, seed, use_aug):
         return SyntheticShapeDataset(
             n_items=n, seed=seed, aug=aug if use_aug else None,
             sampling_aug=sampling_aug if use_aug else None,
             n_eval=d.get("n_query_eval", 2048),
             ram_cache=d.get("ram_cache", True),
-            cache_workers=d.get("cache_workers", 8),
-            n_pcl=d.get("n_pcl", 1024), n_uni=d.get("n_query_uni", 1024),
-            n_nss=d.get("n_query_nss", 1024), noise_std=d.get("noise_std", 0.005),
-        )
+            cache_workers=d.get("cache_workers", 8), **sizes)
 
     return (make(d.get("n_train_items", 512), 0, True),
             make(d.get("n_val_items", 64), 1, False))

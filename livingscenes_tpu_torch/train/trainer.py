@@ -8,7 +8,8 @@ Counterpart of livingscenes_tpu/train/trainer.py, on one device:
 * loss clamping: the objective is clip(loss, -loss_clip, loss_clip), so its
   gradient is 0 when the loss saturates,
 * gradient clipping to grad_clip by global norm, each top-level component
-  (encoder, decoder) on its own,
+  (encoder, decoder, and the class head when the model has one) on its
+  own,
 * Adam as optax.scale_by_adam (b1 0.9, b2 0.999, eps 1e-8, bias-corrected),
   written out on the parameter tensors,
 * `grad_norm`, the global norm of the gradients before clipping,
@@ -16,12 +17,18 @@ Counterpart of livingscenes_tpu/train/trainer.py, on one device:
   selected.metric for the best validation metric, in the port's own format
   (torch.save of the parameters, the Adam state and the step).
 
+* every viz_iter_interval steps, `visualize_sample`: the first sample of a
+  validation batch meshed and rendered into <log_dir>/viz (OBJ, PNGs),
+  with a histogram of z_inv and a turntable GIF through the logger,
+* `anomaly`: after the backward, a non-finite loss or gradient norm raises
+  before the update, naming the encoder's submodules whose forward goes
+  non-finite on the batch (forward hooks, utils/debugging.py) and the
+  model's parameters that hold a NaN or Inf.
+
 A step draws its randomness (the centre jitter, the dropout masks) from a
 generator seeded from (seed, step), as JAX's fold_in(PRNGKey(seed), step):
 a resumed run draws what the uninterrupted one does. A step reads nothing
 back to the host unless it is a log step or `anomaly` is set.
-Not ported: visualize_sample (needs the reconstruction leg) and the anomaly
-check's search for the module that went non-finite.
 """
 from __future__ import annotations
 
@@ -63,9 +70,12 @@ class TrainerConfig:
     seed: int = 12345
     select_metric: str = "iou"
     select_larger: bool = True
-    viz_iter_interval: int = 0  # must stay 0: visualization is not ported
-    # check loss and grad_norm on the host after every step and raise on a
-    # non-finite value
+    # visualize one validation sample every N steps (0: never), meshed at
+    # this resolution
+    viz_iter_interval: int = 0
+    viz_mesh_resolution: int = 32
+    # check loss and grad_norm on the host after every backward and raise on
+    # a non-finite value, naming the modules that produce it
     anomaly: bool = False
 
 
@@ -101,9 +111,6 @@ class TrainState:
 
 class Trainer:
     def __init__(self, model: SIM3Recon, cfg: TrainerConfig = TrainerConfig()):
-        if cfg.viz_iter_interval > 0:
-            raise NotImplementedError("visualize_sample is not ported: "
-                                      "set viz_iter_interval to 0")
         self.model = model
         self.cfg = cfg
         self.schedule = make_lr_schedule(cfg)
@@ -112,6 +119,8 @@ class Trainer:
         # the top-level components, each clipped on its own
         self.components = {"encoder": list(prior.encoder.parameters()),
                            "decoder": list(prior.decoder.parameters())}
+        if prior.cls_head is not None:
+            self.components["cls_head"] = list(prior.cls_head.parameters())
         self.params: List[torch.Tensor] = [
             p for ps in self.components.values() for p in ps]
 
@@ -147,9 +156,12 @@ class Trainer:
     def loss_and_grads(self, batch: Dict[str, torch.Tensor],
                        generator: Optional[torch.Generator]):
         """The forward and backward of one step: (metrics, grads), the
-        gradients of the clamped loss in the order of self.params."""
+        gradients of the clamped loss in the order of self.params (zeros for
+        a parameter the loss does not reach, such as the class head's on a
+        batch without labels)."""
         objective, metrics = self.forward(batch, generator)
-        return metrics, list(torch.autograd.grad(objective, self.params))
+        return metrics, list(torch.autograd.grad(
+            objective, self.params, allow_unused=True, materialize_grads=True))
 
     @torch.no_grad()
     def apply_gradients(self, state: TrainState, grads: List[torch.Tensor]):
@@ -187,18 +199,42 @@ class Trainer:
 
     def train_step(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
         """One step on a batch of numpy arrays; returns the metrics as
-        tensors on the device (and grad_norm)."""
-        metrics, grads = self.loss_and_grads(
-            self.place_batch(batch), self.generator(state.step))
+        tensors on the device (and grad_norm). With `anomaly`, a non-finite
+        loss or gradient norm raises before the update (see
+        anomaly_report)."""
+        placed = self.place_batch(batch)
+        metrics, grads = self.loss_and_grads(placed, self.generator(state.step))
+        if self.cfg.anomaly:
+            norm = torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads))
+            bad = [k for k, v in (("batch_loss", metrics["batch_loss"]),
+                                  ("grad_norm", norm))
+                   if not math.isfinite(float(v))]
+            if bad:
+                raise RuntimeError(self.anomaly_report(bad, state.step + 1, placed))
         metrics["grad_norm"] = self.apply_gradients(state, grads)
         state.step += 1
-        if self.cfg.anomaly:
-            bad = [k for k in ("batch_loss", "grad_norm")
-                   if not math.isfinite(float(metrics[k]))]
-            if bad:
-                raise RuntimeError(
-                    f"anomaly mode: non-finite {bad} at step {state.step}")
         return metrics
+
+    @torch.no_grad()
+    def anomaly_report(self, bad: List[str], step: int, batch) -> str:
+        """The anomaly mode's message: what went non-finite at `step`, the
+        encoder's submodules whose forward is non-finite on the batch's
+        centred inputs (innermost first), and the parameters holding a NaN
+        or Inf."""
+        from ..utils.debugging import locate_nonfinite_modules, nonfinite_parameters
+
+        prior = self.model.prior
+        inputs = batch["inputs"]
+        was_training = prior.training
+        prior.eval()
+        try:
+            _, located = locate_nonfinite_modules(
+                prior.encoder, inputs - torch.mean(inputs, dim=1, keepdim=True))
+        finally:
+            prior.train(was_training)
+        return (f"anomaly mode: non-finite {bad} at step {step}; offending "
+                f"submodules: {located or 'none located in encoder (check decoder/loss)'}"
+                f"; non-finite parameters: {nonfinite_parameters(prior) or 'none'}")
 
     @torch.no_grad()
     def val_step(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
@@ -240,6 +276,13 @@ class Trainer:
                             for k in vals[0]}
                     self.logger.log_metrics("val", step, mean)
                     self._maybe_select(state, mean)
+            if (cfg.viz_iter_interval > 0 and step % cfg.viz_iter_interval == 0
+                    and val_iter_factory is not None):
+                try:
+                    self.visualize_sample(state, next(val_iter_factory()), step)
+                except Exception:  # visualization never stops training
+                    log.exception("visualization failed at step %d", step)
+                    self.logger.log_metrics("viz_error", step, {})
             if cfg.checkpoint_iter > 0 and step % cfg.checkpoint_iter == 0:
                 self.save_checkpoint(state, tag=str(step))
                 self.save_checkpoint(state, tag="latest")
@@ -258,6 +301,48 @@ class Trainer:
             (lambda: batch_iterator(val_dataset, self.cfg.batch_size, seed=1))
             if val_dataset is not None else None)
         return self.run(state, train_it, val_factory, total_iter=total)
+
+    @torch.no_grad()
+    def visualize_sample(self, state: TrainState, batch, step: int):
+        """Mesh and render the first sample of a validation batch (numpy
+        arrays) into <log_dir>/viz: recon_<step>.obj and .png (when the mesh
+        is not empty) and input_<step>.png; log a histogram of its z_inv
+        and a turntable GIF of the mesh."""
+        from ..models.shape_prior import slice_codes
+        from ..recon.extractor import MeshExtractor, MeshExtractorConfig
+        from ..recon.mesh import Mesh
+        from ..utils.viz import render_mesh_image, render_pointcloud_image, write_png
+
+        prior = self.model.prior
+        inputs = self.place_batch({"inputs": batch["inputs"][:1]})["inputs"]
+        was_training = prior.training
+        prior.eval()
+        try:
+            codes, _, _ = self.model._encode_training(inputs, None, train=False)
+            extractor = MeshExtractor(prior.occupancy_logits, MeshExtractorConfig(
+                resolution0=self.cfg.viz_mesh_resolution, upsampling_steps=0,
+                simplify_nfaces=None))
+            mesh = extractor.generate_from_codes(slice_codes(codes, 0))
+        finally:
+            prior.train(was_training)
+        viz_dir = os.path.join(self.cfg.log_dir, "viz")
+        os.makedirs(viz_dir, exist_ok=True)
+        if not mesh.is_empty:
+            mesh.export_obj(os.path.join(viz_dir, f"recon_{step}.obj"))
+            write_png(os.path.join(viz_dir, f"recon_{step}.png"),
+                      render_mesh_image(mesh, size=256))
+        write_png(os.path.join(viz_dir, f"input_{step}.png"),
+                  render_pointcloud_image([np.asarray(batch["inputs"][0])], size=256))
+        self.logger.log_histogram("val", step, "z_inv",
+                                  codes["z_inv"].cpu().numpy())
+        if not mesh.is_empty:
+            frames = []
+            for ang in np.linspace(0, 2 * np.pi, 12, endpoint=False):
+                c, s = np.cos(ang), np.sin(ang)
+                Rz = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+                frames.append(render_mesh_image(Mesh(mesh.vertices @ Rz.T, mesh.faces),
+                                                size=192))
+            self.logger.log_video("recon_turntable", step, frames)
 
     # ------------------------------------------------------------------
     def _ckpt_dir(self) -> str:

@@ -303,14 +303,21 @@ def test_run_epochs_takes_whole_passes(params, tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError):
-        SIM3Recon(ShapePriorConfig(**TINY), TrainLossConfig(rot_aug=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        SIM3Recon(ShapePriorConfig(**TINY), TrainLossConfig(decoder_bf16=True),
-                  device="cpu")
-    model = SIM3Recon(ShapePriorConfig(**TINY), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Trainer(model, TrainerConfig(log_dir=str(tmp_path), viz_iter_interval=5))
+    """The options still unported raise (decoder_type, center_pred); the
+    ported ones (rot_aug, decoder_bf16, viz_iter_interval) build."""
+    for key, value in (("decoder_type", "onet"), ("center_pred", False),
+                       ("center_pred_scale", False)):
+        cfg = {"model": {"encoder": {}}}
+        (cfg["model"] if key == "decoder_type" else cfg["model"]["encoder"])[key] = value
+        with pytest.raises(NotImplementedError):
+            prun.build_model(cfg, device="cpu")
+    cfg = {"model": {"rot_aug": True, "decoder_bf16": True}}
+    loss_cfg = prun.build_model(cfg, device="cpu").loss_cfg
+    assert loss_cfg.rot_aug and loss_cfg.decoder_bf16
+    model = SIM3Recon(ShapePriorConfig(**TINY), TrainLossConfig(rot_aug=True,
+                      decoder_bf16=True), device="cpu")
+    trainer = Trainer(model, TrainerConfig(log_dir=str(tmp_path), viz_iter_interval=5))
+    assert trainer.cfg.viz_iter_interval == 5
 
 
 def test_anomaly_mode_raises_on_nan(params, tmp_path):

@@ -123,7 +123,7 @@ def test_mesh_methods_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["isosurface.cpp", "simplify.cpp", "kdtree.cpp",
-                                  "inside_mesh.cpp", "voxelize.cpp"])
+                                  "inside_mesh.cpp", "voxelize.cpp", "rasterize.cpp"])
 def test_sources_equal_the_jax_package(name):
     with open(os.path.join(ROOT, "livingscenes_tpu", "native", "src", name), "rb") as f:
         want = f.read()
@@ -240,6 +240,14 @@ def test_mesh_extractor_overflow_warning_and_refinement(caplog):
         mesh = et.generate_from_codes({"s": torch.ones(1), "t": torch.zeros((1, 1, 3))})
     assert not mesh.is_empty
     assert "cap overflow" in caplog.text
-    with pytest.raises(NotImplementedError, match="refinement_step"):
-        text.MeshExtractor(lambda q, c: q[..., 0],
-                           text.MeshExtractorConfig(refinement_step=1))
+    # refinement_step > 0 returns the refined mesh: the same faces, its
+    # vertices moved (tests/test_torch_recon_refine.py holds them to JAX's)
+    field = lambda q, c: 20.0 * (0.4 - torch.linalg.norm(q, dim=-1)) + 3.0 * torch.sin(8 * q[..., 0])
+    cfg = dict(resolution0=8, upsampling_steps=0, simplify_nfaces=None, refinement_lr=2e-3)
+    codes = {"s": torch.ones(1), "t": torch.zeros((1, 1, 3))}
+    plain = text.MeshExtractor(field, text.MeshExtractorConfig(**cfg)).generate_from_codes(codes)
+    refined = text.MeshExtractor(field, text.MeshExtractorConfig(
+        refinement_step=3, **cfg)).generate_from_codes(codes)
+    np.testing.assert_array_equal(refined.faces, plain.faces)
+    assert np.isfinite(refined.vertices).all()
+    assert 1e-4 < np.abs(refined.vertices - plain.vertices).max() < 0.05

@@ -192,7 +192,8 @@ def _imports(path):
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port (the eval modules named), chip_smoke.py and
+    """Every module of the port (the eval, render, preprocessing, binvox, viz
+    and debugging modules named), chip_smoke.py and
     the port's scripts/torch_*.py, named in their source and imported in a
     fresh interpreter in which jax and the JAX package cannot be
     imported."""
@@ -217,7 +218,9 @@ def test_port_imports_nothing_of_jax():
     assert len(modules) > 30
     for name in ("se3", "utils.io", "native.bindings", "eval", "eval.metrics",
                  "eval.mesh_eval", "eval.flyingshape", "eval.rescan3r",
-                 "eval.run_flyingshape", "eval.run_3rscan"):
+                 "eval.run_flyingshape", "eval.run_3rscan", "recon.render",
+                 "tools", "tools.preprocess", "utils.binvox", "utils.viz",
+                 "utils.debugging"):
         assert f"livingscenes_tpu_torch.{name}" in modules, name
     code = ("import sys\n"
             f"for name in {sorted(banned)!r}:\n"
