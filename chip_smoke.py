@@ -125,7 +125,17 @@
    class head, a visualize_sample firing, the anomaly mode naming a
    poisoned module, and 30 refinement steps on r5 meshes (card against
    CPU). Its bounds are in its docstring.
-11. Prints a `kernels` JSON line (all 14 kernels), a line of headline
+11. The rest of the model zoo (phase_variants): the attention encoder's
+   options (center_pred=False, center_pred_scale=False, z_so3_as_Omtx with
+   the fused kernels; mixed_precision without), the five ablation encoders
+   under both values of pallas_attention (row 2's launches counted: 1, 5,
+   3, 0, 0 an encode), each card against CPU; train.run.main with
+   center_pred: false and decoder_type: inner from a fresh init (launches
+   a step as TRAIN_STEP_LAUNCHES, timed), decoder_type deepsdf's step equal
+   to inner_deepsdf's bit for bit; the ONet decoders and
+   extract_surface_points, card against CPU. Its bounds are in its
+   docstring.
+12. Prints a `kernels` JSON line (all 14 kernels), a line of headline
    figures, the card line, and as its last line {"ok": true, "device":
    {...}}.
 
@@ -211,6 +221,32 @@ REFINE_MESHES = 4  # procedural shapes meshed and refined on the card
 # the largest difference over the box size (1.1): each step moves a vertex
 # by at most sqrt(10) lr = 3.2e-4 a coordinate, 9.5e-3 in 30 steps
 REFINE_TOL = 1e-4
+VARIANT_CPU_CLOUDS = 4  # clouds of each encode's card-against-CPU check
+ABLATION_CPU_CLOUDS = 2  # the same for the ablation encoders (float64 too)
+VARIANT_TOL = 1e-4  # max|R - I| between card and CPU codes, equal graphs
+VARIANT_SWAP_TOL = 5e-2  # the same after a witnessed near-tie swap
+# mixed_precision: layers 0 and 1 round their operands to bfloat16 on both
+# sides, so a float32 rounding difference of an operand that lies on a
+# bfloat16 rounding boundary moves that operand by 2^-8 of itself. On the
+# CPU alone, clouds moved by 1e-7 of themselves turn the r5 codes with
+# mixed_precision by up to 2.8e-2 (max|R - I|; cpu_spread measures it each
+# run): the card is held to the CPU within 5e-2, and the later layers'
+# inputs differ by a few
+# bfloat16 steps (1.4e-2 measured), not by float32 rounding, so a graph
+# difference is backed by each side's pick being right on its own inputs
+# with the inputs within 8 x 2^-8
+MIXED_TOL = 5e-2
+MIXED_INPUT_TOL = 8 * 2.0 ** -8
+# row 2's launches an encode of each ablation encoder: VecDGCNN reuses its
+# layer-0 graph, VecDGCNNV2 builds one a layer, DGCNN one a layer of three
+ABLATION_KNN = {"vecdgcnn": 1, "vecdgcnn2": 5, "dgcnn": 3, "pointnet": 0, "pcnet": 0}
+VARIANT_TRAIN_ITEMS = 64  # one batch of the center_pred: false / inner run
+VARIANT_TRAIN_STEPS = 5  # steps of that run's train.run.main, counted
+VARIANT_TIMED_STEPS = 5  # its timed (and split) steps after 3 of warm-up
+ONET_POINTS = 2048  # queries a code of the ONet decoders' check
+ONET_CPU_CODES = 8  # codes of it held against the CPU
+UDF_POINTS = 20000  # extract_surface_points on the card (its default)
+UDF_CPU_POINTS = 1000  # the decoder's field against the CPU at this size
 # kernel launches of one training step: FPS at layers 2, 4, 5, a kNN graph
 # per layer, each fused layer forward and backward (the layer-0 backward's
 # edge pass and its fold; the mean-edge and the attention backward's edge
@@ -2158,8 +2194,9 @@ def phase_recon(torch, report, state, want: dict):
 
 class record_graphs:
     """While active, the kNN graphs and FPS picks the encoder builds
-    (vec_dgcnn_attn's knn_auto and fps_auto, and the fused front end's
-    layer-0 graph, shape_prior's knn_with_topk_scale) are kept on the host
+    (vec_dgcnn_attn's knn_auto and fps_auto, the ablation encoders'
+    knn_auto, and the fused front end's layer-0 graph, shape_prior's
+    knn_with_topk_scale) are kept on the host
     in call order, as ("knn", layer, idx (B, Nd, K)) and ("fps", layer, idx
     (B, n)). `layer` counts the kNN graphs recorded before: the encoder
     layer, whichever way its layer-0 graph is built. With `keep_inputs`,
@@ -2175,9 +2212,11 @@ class record_graphs:
 
     def __enter__(self):
         from livingscenes_tpu_torch.models import shape_prior as sp
+        from livingscenes_tpu_torch.nn import encoders
         from livingscenes_tpu_torch.nn import vec_dgcnn_attn as vda
 
         self.vda, self.saved, self.calls = vda, (vda.knn_auto, vda.fps_auto), []
+        self.encoders = encoders
         self.sp, self.front = sp, sp.knn_with_topk_scale
         knn_real, fps_real = self.saved
 
@@ -2205,10 +2244,12 @@ class record_graphs:
             return out
 
         vda.knn_auto, vda.fps_auto = knn, fps
+        encoders.knn_auto = knn
         return self
 
     def __exit__(self, *exc):
         self.vda.knn_auto, self.vda.fps_auto = self.saved
+        self.encoders.knn_auto = self.saved[0]
         self.sp.knn_with_topk_scale = self.front
 
 
@@ -4227,6 +4268,481 @@ def refinement_check(torch):
             "faces": float(np.mean([r["faces"] for r in rows]))}
 
 
+class count_plain_scale:
+    """While active, shape_prior's plain scale statistic (what
+    normalize_input takes with pallas_attention off) counts its calls in
+    `calls`; every other plain version is left to forbid_plain."""
+
+    def __enter__(self):
+        from livingscenes_tpu_torch.models import shape_prior as sp
+
+        self.sp, self.real, self.calls = sp, sp.top_k_mean_pairwise_distance_plain, 0
+
+        def counted_plain(*a, **k):
+            self.calls += 1
+            return self.real(*a, **k)
+
+        sp.top_k_mean_pairwise_distance_plain = counted_plain
+        return self
+
+    def __exit__(self, *exc):
+        self.sp.top_k_mean_pairwise_distance_plain = self.real
+
+
+def variant_state(model, state):
+    """The model's state dict with each entry the r5 checkpoint has taken
+    from it: a head r5 lacks (fc_O) keeps the model's seeded init, and an
+    r5 head the variant lacks (fc_center without center_pred) is left out."""
+    own = model.state_dict()
+    return {k: state[k] if k in state else own[k] for k in own}
+
+
+def backed(w, input_tol=1e-3):
+    """Whether a tie witness (knn_tie_witness, fps_tie_witness) backs its
+    difference: each side's pick right (for FPS also a near-tie) on its own
+    inputs, and the two sides' inputs within input_tol of their largest
+    entry; at 1e-3 (float32 rounding through the layers before) this is the
+    witness's own `near_tie`."""
+    return w["inputs_rel_diff"] <= input_tol and all(
+        w[side]["pick_right"] and w[side].get("near_tie", True)
+        for side in ("card", "cpu"))
+
+
+def code_gaps(torch, a, b, equivariant):
+    """Per cloud: max|R - I| of the rotation between codes a and b (Kabsch on
+    z_so3 + t; 0 without `equivariant`), z_inv's largest difference over
+    b's largest entry, and s's relative difference."""
+    from livingscenes_tpu_torch.solver.registration import kabsch_from_codes
+
+    n = b["s"].shape[0]
+    dR = (torch.zeros(n, dtype=torch.float64) if not equivariant else
+          (kabsch_from_codes(a, b).R - torch.eye(3, dtype=b["s"].dtype))
+          .abs().amax(dim=(1, 2)).double())
+    zi = ((a["z_inv"] - b["z_inv"]).abs().amax(-1) / b["z_inv"].abs().amax(-1)).double()
+    s_rel = ((a["s"] - b["s"]).abs() / b["s"].abs()).double()
+    return dR, zi, s_rel
+
+
+def hold_codes(torch, tag, card, cpu, card_graphs, cpu_graphs, equivariant, tol,
+               input_tol=1e-3, ref64=None):
+    """Card codes against CPU codes of the first len(cpu["s"]) clouds. With
+    `equivariant` the codes' rotation (code_gaps) must be the identity
+    within `tol` where the two sides built the same kNN graphs and FPS picks
+    in every layer, within VARIANT_SWAP_TOL elsewhere, and each such first
+    difference must be backed by its f64 witness (`backed` with input_tol);
+    z_inv within `tol` of each cloud's largest entry (VARIANT_SWAP_TOL after
+    a swap), s within 1e-2 relative, matches0 of z_inv the identity. With
+    `ref64`, the codes of a float64 CPU run on the same sampled points, an
+    equal-graph cloud is held instead to the card being as close to it as
+    the float32 CPU run is: each gap at most 4 times the CPU's plus 1e-6
+    (for weights, such as a seeded init, whose products cancel more than
+    r5's). Returns the figures."""
+    from livingscenes_tpu_torch.solver.matcher import sequential_matcher
+
+    n = cpu["s"].shape[0]
+    card = {k: v[:n].float().cpu() for k, v in card.items()}
+    cpu = {k: v.float() for k, v in cpu.items()}
+    for key, val in card.items():
+        if not bool(torch.isfinite(val).all()):
+            raise AssertionError(f"{tag}: non-finite {key} on the card")
+    first, per_layer = graph_differences(card_graphs.calls, cpu_graphs.calls, n)
+    same = [f is None for f in first]
+    dR, zi, s_rel = code_gaps(torch, card, cpu, equivariant)
+    witnesses = {c: witness_first_difference(torch, card_graphs, cpu_graphs, first[c], c)
+                 for c in range(n) if first[c] is not None}
+    for c, w in witnesses.items():
+        log_witness(tag, f"cloud {c}", w)
+    matched = sequential_matcher(card["z_inv"][None], cpu["z_inv"][None])["matches0"][0]
+    close = [max(float(dR[c]), float(zi[c])) <= tol for c in range(n)]
+    out = {"clouds": n, "max_abs_dR": float(dR.max()), "max_z_inv_rel": float(zi.max()),
+           "max_s_rel": float(s_rel.max()), "equal_graph_clouds": int(sum(same)),
+           "first_differences": {c: first[c] for c in witnesses},
+           "graph_rows_differing": per_layer, "tol": tol}
+    if ref64 is not None:
+        ref64 = {k: v.double() for k, v in ref64.items()}
+        g_card = code_gaps(torch, {k: v.double() for k, v in card.items()}, ref64,
+                           equivariant)
+        g_cpu = code_gaps(torch, {k: v.double() for k, v in cpu.items()}, ref64,
+                          equivariant)
+        close = [all(float(gc[c]) <= 4 * float(gp[c]) + 1e-6
+                     for gc, gp in zip(g_card, g_cpu)) for c in range(n)]
+        out["vs_float64"] = {
+            side: {name: float(g.max()) for name, g in zip(("dR", "z_inv", "s"), gaps)}
+            for side, gaps in (("card", g_card), ("cpu", g_cpu))}
+    bad = [c for c in range(n)
+           if not (close[c] if same[c] else
+                   max(float(dR[c]), float(zi[c])) <= VARIANT_SWAP_TOL
+                   and backed(witnesses[c], input_tol))]
+    log(f"{tag}: card vs cpu on clouds 0-{n - 1}: max|R - I| {out['max_abs_dR']:.3g}, "
+        f"z_inv {out['max_z_inv_rel']:.3g}, s {out['max_s_rel']:.3g} (rel)"
+        + ("" if ref64 is None else "; against the float64 CPU run, card / cpu: "
+           + ", ".join(f"{k} {out['vs_float64']['card'][k]:.3g} / "
+                       f"{out['vs_float64']['cpu'][k]:.3g}" for k in ("dR", "z_inv", "s")))
+        + f"; {out['equal_graph_clouds']} clouds with equal graphs; the others: "
+        + (", ".join(f"cloud {c}: {f}" for c, f in out["first_differences"].items())
+           or "none"))
+    if bad or float(s_rel.max()) > 1e-2 or matched.tolist() != list(range(n)):
+        raise AssertionError(f"{tag}: card and CPU codes differ: clouds {bad}, {out}, "
+                             f"matches {matched.tolist()}")
+    return out
+
+
+def encode_variant(torch, tag, cfg, state, ref, want, equivariant=True,
+                   tol=VARIANT_TOL, forbid=True, cpu_run=None, input_tol=1e-3,
+                   f64=False, n_cpu=VARIANT_CPU_CLOUDS, profile=False):
+    """encode_fps of the (B, N_FULL, 3) clouds `ref` (on the card) through
+    ShapePrior(cfg) with the weights `state` (variant_state): counted (held
+    to `want`) with the plain scale statistic counted as "plain_scale" and,
+    with `forbid`, every other plain version forbidden (without it, as
+    phase_pipeline runs the default config, the encoder's own plain layers
+    run); timed (median of 5 calls after one); then the first n_cpu clouds
+    through the same model on the CPU, or
+    `cpu_run` from an earlier call with the same weights (hold_codes with
+    `tol` and `input_tol`; with `f64` also against a float64 CPU encode of
+    the CPU's sampled points). With `profile`, one more encode under
+    torch.profiler: its device ms, busy share and heaviest kernels
+    (kernel_summary). Returns (figures, cpu_run)."""
+    import contextlib
+
+    from livingscenes_tpu_torch.models.shape_prior import ShapePrior
+    from livingscenes_tpu_torch.ops.fps import farthest_point_sampling as fps_plain
+
+    model = ShapePrior(cfg, device="cuda")
+    model.load_state_dict(variant_state(model, state))
+    with torch.inference_mode():
+        model.encode_fps(ref)  # warm-up
+        torch.cuda.synchronize()
+        with (forbid_plain() if forbid else contextlib.nullcontext(),
+              count_plain_scale() as plain,
+              record_graphs(keep_inputs=True) as card_graphs):
+            codes, launches = counted(lambda: model.encode_fps(ref))
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in launches.items() if v}
+        if plain.calls:
+            launches["plain_scale"] = plain.calls
+        samples = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.encode_fps(ref)
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        split = None
+        if profile:
+            from torch.profiler import ProfilerActivity
+
+            with torch.profiler.profile(
+                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model.encode_fps(ref)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            split = kernel_summary(torch, prof, wall)
+            log(f"{tag}: profile of one encode: wall {wall:.1f} ms, device "
+                f"{split['device_ms']:.1f} ms ({split['busy']:.1%} busy), "
+                f"{split['kernels']} kernel launches; top: "
+                + "; ".join(f"{k} {t:.2f} ms x{c}" for k, t, c in split["top"][:8]))
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+    cpu_s = 0.0
+    if cpu_run is None:
+        cpu_state = {k: v.cpu() for k, v in model.state_dict().items()}
+        cpu_model = ShapePrior(cfg, device="cpu")
+        cpu_model.load_state_dict(cpu_state)
+        t0 = time.perf_counter()
+        with torch.inference_mode(), record_graphs(keep_inputs=True) as cpu_graphs:
+            sampled = fps_plain(ref[:n_cpu].cpu(), cfg.n_pcl)[0]
+            cpu_codes = cpu_model.encode(sampled)
+        codes64 = None
+        if f64:
+            model64 = ShapePrior(cfg, device="cpu", dtype=torch.float64)
+            model64.load_state_dict(cpu_state)
+            with torch.inference_mode():
+                codes64 = model64.encode(sampled.double())
+        cpu_s = time.perf_counter() - t0
+        cpu_run = (cpu_codes, cpu_graphs, codes64)
+    cpu_codes, cpu_graphs, codes64 = cpu_run
+    ms = float(np.median(samples))
+    log(f"{tag}: encode_fps {ref.shape[0]}x{ref.shape[1]} -> {cfg.n_pcl}: launches "
+        f"{launches}, median {ms:.2f} ms over 5 calls (cpu check {cpu_s:.1f} s)")
+    held = hold_codes(torch, tag, codes, cpu_codes, card_graphs, cpu_graphs,
+                      equivariant, tol, input_tol, codes64)
+    figures = {"launches": launches, "ms": ms, "ms_samples": samples, "cpu_s": cpu_s,
+               "cpu_check": held}
+    if split is not None:
+        figures["profile"] = split
+    return figures, cpu_run
+
+
+def cpu_spread(torch, cfg, state, ref, rel=1e-7):
+    """How far a float32 rounding of the input moves the codes on the CPU
+    alone: the first VARIANT_CPU_CLOUDS clouds of `ref` FPS-sampled to
+    n_pcl, encoded as they are and moved by `rel` of themselves (a seeded
+    normal draw); max|R - I| (Kabsch on z_so3 + t) and z_inv's change over
+    its largest entry, the largest over the clouds."""
+    from livingscenes_tpu_torch.models.shape_prior import ShapePrior
+    from livingscenes_tpu_torch.ops.fps import farthest_point_sampling
+    from livingscenes_tpu_torch.solver.registration import kabsch_from_codes
+
+    model = ShapePrior(cfg, device="cpu")
+    model.load_state_dict(variant_state(model, state))
+    with torch.inference_mode():
+        pts = farthest_point_sampling(ref[:VARIANT_CPU_CLOUDS].cpu(), cfg.n_pcl)[0]
+        noise = torch.randn(pts.shape, generator=torch.Generator().manual_seed(3))
+        a, b = model.encode(pts), model.encode(pts * (1 + rel * noise))
+    dR = (kabsch_from_codes(a, b).R - torch.eye(3)).abs().amax(dim=(1, 2))
+    zi = (a["z_inv"] - b["z_inv"]).abs().amax(-1) / a["z_inv"].abs().amax(-1)
+    return {"rel": rel, "max_abs_dR": float(dR.max()), "max_z_inv_rel": float(zi.max())}
+
+
+def variant_training(torch, report_v):
+    """(c): train.run.main on configs/production_r5.yaml with
+    model.encoder.center_pred=false and model.decoder_type=inner (no centre
+    head, DecoderCat), from a fresh init, VARIANT_TRAIN_STEPS steps at batch
+    64 on VARIANT_TRAIN_ITEMS synthetic items, counted (launches a step
+    exactly TRAIN_STEP_LAUNCHES, every plain version forbidden), then the
+    step timed and split. Then one step from r5 with decoder_type deepsdf
+    and one with inner_deepsdf on the same batch and seeds: the same
+    batch_loss bits."""
+    import shutil
+    import tempfile
+
+    from livingscenes_tpu_torch.train import run as train_run
+    from livingscenes_tpu_torch.train.config import apply_overrides, load_config
+    from livingscenes_tpu_torch.train.data import batch_iterator
+    from livingscenes_tpu_torch.train.trainer import Trainer
+
+    log_dir = tempfile.mkdtemp(prefix="lstpu_variants_")
+    overrides = [f"dataset.n_train_items={VARIANT_TRAIN_ITEMS}", "dataset.n_val_items=8",
+                 f"logging.log_dir={log_dir}/run", "model.encoder.center_pred=false",
+                 "model.decoder_type=inner"]
+    argv = ["--config", TRAIN_CONFIG, "--total-iter", str(VARIANT_TRAIN_STEPS)]
+    for ov in overrides:
+        argv += ["--override", ov]
+    try:
+        t0 = time.perf_counter()
+        with forbid_plain():
+            (trainer, state), launches = counted(lambda: train_run.main(argv))
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = {k: v for k, v in launches.items() if v}
+        want = {k: VARIANT_TRAIN_STEPS * v for k, v in TRAIN_STEP_LAUNCHES.items()}
+        prior = trainer.model.prior
+        if (hasattr(prior.encoder, "fc_center")
+                or type(prior.decoder).__name__ != "DecoderCat"):
+            raise AssertionError("variants: the YAML's options did not reach the model")
+        log(f"variants: train.run.main center_pred=false, decoder_type=inner, "
+            f"{VARIANT_TRAIN_STEPS} steps from a fresh init in {main_s:.1f} s: "
+            f"launches {launches}")
+        if launches != want:
+            raise AssertionError(f"variants training: launches {launches}, expected {want}")
+        with open(os.path.join(log_dir, "run", "metrics.jsonl")) as f:
+            last = [r for r in map(json.loads, f) if "grad_norm" in r][-1]
+        if not all(np.isfinite(last[k]) for k in ("batch_loss", "grad_norm")):
+            raise AssertionError(f"variants training: last log {last}")
+        cfg = apply_overrides(load_config(TRAIN_CONFIG), overrides)
+        train_ds, _ = train_run.build_datasets(cfg)
+        batches = batch_iterator(train_ds, trainer.cfg.batch_size, seed=1)
+        timed = time_training_steps(torch, trainer, state, batches, False,
+                                    n_timed=VARIANT_TIMED_STEPS)
+        result = {"steps": VARIANT_TRAIN_STEPS, "main_s": main_s, "launches": launches,
+                  "last_log": last, **timed}
+
+        # decoder_type deepsdf is inner_deepsdf: one step from r5, bit for bit
+        batch = next(batches)
+        losses = {}
+        for decoder_type in ("inner_deepsdf", "deepsdf"):
+            dcfg = apply_overrides(load_config(TRAIN_CONFIG), [
+                f"logging.log_dir={log_dir}/{decoder_type}",
+                f"model.decoder_type={decoder_type}"])
+            model = train_run.build_model(dcfg, device="cuda")
+            model.prior.load_state_dict(train_run.load_init_params(CKPT))
+            tr = Trainer(model, train_run.build_trainer_cfg(dcfg))
+            metrics = tr.train_step(tr.init_state(), batch)
+            losses[decoder_type] = float(metrics["batch_loss"])
+        log(f"variants: one step from r5 on the same batch and seeds: batch_loss "
+            f"inner_deepsdf {losses['inner_deepsdf']!r}, deepsdf {losses['deepsdf']!r}")
+        if losses["inner_deepsdf"] != losses["deepsdf"]:
+            raise AssertionError(f"variants: deepsdf and inner_deepsdf differ: {losses}")
+        result["deepsdf_step_loss"] = losses
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    report_v["training"] = result
+
+
+def variant_decoders(torch, report_v, state, ref):
+    """(d): the ONet decoders (JAX's default widths, parameters from a
+    seeded init moved by 0.05 so that the zero-initialized layers condition)
+    on 64 codes x ONET_POINTS queries, the first ONET_CPU_CODES codes
+    against the CPU (within 1e-4 of the largest value); then
+    extract_surface_points at UDF_POINTS points on the analytic sphere
+    (radius 0.4) and on |SDF| of the r5 decoder at the codes of cloud 0 in
+    the codes' canonical frame, each card against CPU from the same draws (the decoder's field on the
+    CPU at UDF_CPU_POINTS points, also run on the card from those draws):
+    the masks equal, the points within 1e-4 of the box; the card's own runs
+    accept most points, the sphere's on it within 0.02."""
+    from livingscenes_tpu_torch.models.shape_prior import ShapePrior
+    from livingscenes_tpu_torch.nn import onet_decoder
+    from livingscenes_tpu_torch.recon.udf import (
+        UDFExtractorConfig, extract_surface_points, udf_draws)
+
+    rng = np.random.default_rng(11)
+    p = torch.as_tensor(rng.normal(size=(B, ONET_POINTS, 3)) * 0.5, dtype=torch.float32)
+    c = torch.as_tensor(rng.normal(size=(B, 128)), dtype=torch.float32)
+    onet = {}
+    for name in ("Decoder", "DecoderCBatchNorm"):
+        dec = onet_decoder.init_parameters(getattr(onet_decoder, name)(),
+                                           torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            for prm in dec.parameters():
+                prm.add_(0.05)
+        card_dec = getattr(onet_decoder, name)().cuda()
+        card_dec.load_state_dict(dec.state_dict())
+        with torch.inference_mode():
+            out = card_dec(p.cuda(), c.cuda())
+            ms = cuda_ms(torch, lambda: card_dec(p.cuda(), c.cuda()), 5)
+            want = dec(p[:ONET_CPU_CODES], c[:ONET_CPU_CODES])
+        got = out[:ONET_CPU_CODES].cpu()
+        rel = float((got - want).abs().max() / want.abs().max())
+        log(f"variants: {name} {B}x{ONET_POINTS}: {ms:.3f} ms, card vs cpu on "
+            f"{ONET_CPU_CODES} codes {rel:.3g} of the largest value")
+        if not (bool(torch.isfinite(out).all()) and rel <= 1e-4):
+            raise AssertionError(f"variants: {name} card and CPU differ by {rel}")
+        onet[name] = {"ms": ms, "cpu_rel": rel}
+
+    sphere = lambda q: torch.abs(torch.linalg.norm(q, dim=-1) - 0.4)
+    model = ShapePrior(device="cuda")
+    model.load_state_dict(state)
+    with torch.no_grad():
+        codes = model.encode_fps(ref[:1])
+    cpu_model = ShapePrior(device="cpu")
+    cpu_model.load_state_dict(state)
+
+    def canonical_udf(m, c):
+        """|SDF| of the decoder at the codes c, at points of the code's
+        canonical frame (world = t + s q), where the extraction box lies."""
+        return lambda q: torch.abs(m.decode_sdf((c["t"][0] + c["s"][0] * q)[None], c)[0])
+
+    fields = {
+        "sphere": (sphere, sphere, UDF_POINTS),
+        "r5_decoder": (canonical_udf(model, codes), canonical_udf(
+            cpu_model, {k: v.cpu() for k, v in codes.items()}), UDF_CPU_POINTS),
+    }
+    udf = {}
+    for name, (f_card, f_cpu, n_cpu) in fields.items():
+        cfg = UDFExtractorConfig(num_points=UDF_POINTS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pts, mask = extract_surface_points(f_card, cfg, torch.Generator(
+            device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        small = UDFExtractorConfig(num_points=n_cpu)
+        draws = udf_draws(small, torch.Generator().manual_seed(2))
+        card_pts, card_mask = extract_surface_points(f_card, small, draws=draws, device="cuda")
+        t0 = time.perf_counter()
+        cpu_pts, cpu_mask = extract_surface_points(f_cpu, small, draws=draws, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        gap = float((card_pts.cpu() - cpu_pts).abs().max()) / small.box_size
+        same_mask = bool(torch.equal(card_mask.cpu(), cpu_mask))
+        accepted = float(mask.float().mean())
+        res = {"points": UDF_POINTS, "ms": ms, "accepted": accepted,
+               "cpu_points": n_cpu, "cpu_max_diff_over_box": gap,
+               "masks_equal": same_mask, "cpu_s": cpu_s}
+        if name == "sphere":
+            r = torch.linalg.norm(pts[mask], dim=-1).cpu()
+            res["radius_err"] = float((r - 0.4).abs().max())
+        log(f"variants: extract_surface_points {name}: {UDF_POINTS} points in {ms:.1f} ms, "
+            f"{accepted:.1%} accepted" + (f", radius within {res['radius_err']:.3g}"
+                                          if "radius_err" in res else "")
+            + f"; card vs cpu at {n_cpu} points: masks "
+            f"{'equal' if same_mask else 'DIFFER'}, points within {gap:.3g} of the box "
+            f"(cpu {cpu_s:.1f} s)")
+        if (not same_mask or gap > 1e-4 or not bool(torch.isfinite(pts).all())
+                or accepted < 0.5 or res.get("radius_err", 0.0) > 0.02):
+            raise AssertionError(f"variants: extract_surface_points {name}: {res}")
+        udf[name] = res
+    report_v["onet"], report_v["udf"] = onet, udf
+
+
+def phase_variants(torch, report, state, ref_np):
+    """The rest of the model zoo on the card, each path counted with the
+    launch counts set to 0 just before it. ref_np: make_scenes' reference
+    clouds (8 x 8 x N_FULL); encodes take all 64 through encode_fps
+    (N_FULL -> N_PCL points), and the first few of them go through the CPU
+    as well (encode_variant, hold_codes).
+    (a) The attention encoder's options with the r5 weights (fc_O from the
+        seeded init): center_pred=False, center_pred_scale=False and
+        z_so3_as_Omtx, each with pallas_attention=True (rows 1, 2, 4-7 as in
+        one encode of the fused pipeline, every plain version forbidden;
+        card vs CPU within VARIANT_TOL), and mixed_precision with
+        pallas_attention=False (rows 1 and 2, the plain scale statistic once;
+        within MIXED_TOL, its graph differences backed within
+        MIXED_INPUT_TOL).
+    (b) The five ablation encoders through ShapePrior(ShapePriorConfig(
+        encoder_type=..., c_dim=256)) at JAX's default widths from the
+        seeded init, under both values of pallas_attention: row 2 launched
+        ABLATION_KNN times an encode, row 1 once (the front end's FPS), row
+        8 once with pallas_attention=True and the plain scale statistic once
+        without, row 4 never, no other plain version; card against CPU
+        codes on ABLATION_CPU_CLOUDS clouds (the CPU run once an encoder: it
+        does not depend on the flag), the seeded weights' equal-graph clouds
+        held by the float64 CPU run (hold_codes ref64); the two VN encoders'
+        fused encode also profiled once (its kernel split).
+    (c) Training with center_pred: false and decoder_type: inner, and the
+        deepsdf decoder type's step (variant_training).
+    (d) The ONet decoders and extract_surface_points (variant_decoders)."""
+    from livingscenes_tpu_torch.models.shape_prior import ShapePrior, ShapePriorConfig
+
+    t_phase = time.perf_counter()
+    ref = torch.as_tensor(ref_np, device="cuda").reshape(B, N_FULL, 3)
+    per_encode = {"fps": 1 + len(FPS_ENCODER), "knn": len(KNN_LAYERS) - 1,
+                  "knn_topk": 1, "layer0": 1, "edge_mean": 1, "edge_mean_products": 2,
+                  "edge_attention": len(KNN_LAYERS) - 2,
+                  "edge_attention_products": 2 * (len(KNN_LAYERS) - 2)}
+    out = {"options": {}, "ablation": {}}
+    for name, opt in (("center_pred_false", dict(center_pred=False)),
+                      ("center_pred_scale_false", dict(center_pred_scale=False)),
+                      ("z_so3_as_Omtx", dict(z_so3_as_Omtx=True))):
+        out["options"][name], _ = encode_variant(
+            torch, f"variants {name}", ShapePriorConfig(pallas_attention=True, **opt),
+            state, ref, per_encode)
+    mixed = ShapePriorConfig(mixed_precision=True)
+    out["options"]["mixed_precision"], _ = encode_variant(
+        torch, "variants mixed_precision", mixed, state, ref,
+        {"fps": 1 + len(FPS_ENCODER), "knn": len(KNN_LAYERS), "plain_scale": 1},
+        tol=MIXED_TOL, forbid=False, input_tol=MIXED_INPUT_TOL)
+    spread = out["options"]["mixed_precision"]["cpu_spread"] = cpu_spread(
+        torch, mixed, state, ref)
+    log(f"variants mixed_precision: the CPU's own spread, clouds moved by 1e-7 of "
+        f"themselves: max|R - I| {spread['max_abs_dR']:.3g}, z_inv "
+        f"{spread['max_z_inv_rel']:.3g}")
+    torch.cuda.empty_cache()
+
+    for etype, n_knn in ABLATION_KNN.items():
+        seeded = ShapePrior(ShapePriorConfig(encoder_type=etype, c_dim=256),
+                            device="cpu").state_dict()
+        runs, cpu_run = {}, None
+        for fused in (True, False):
+            want = {"fps": 1, "knn": n_knn, "scale" if fused else "plain_scale": 1}
+            want = {k: v for k, v in want.items() if v}
+            runs[fused], cpu_run = encode_variant(
+                torch, f"variants {etype} pallas_attention={fused}",
+                ShapePriorConfig(encoder_type=etype, c_dim=256, pallas_attention=fused),
+                seeded, ref, want, equivariant=etype.startswith("vecdgcnn"),
+                cpu_run=cpu_run, f64=True, n_cpu=ABLATION_CPU_CLOUDS,
+                profile=fused and etype.startswith("vecdgcnn"))
+            torch.cuda.empty_cache()
+        out["ablation"][etype] = {f"pallas_attention={k}": v for k, v in runs.items()}
+
+    variant_training(torch, out)
+    torch.cuda.empty_cache()
+    variant_decoders(torch, out, state, ref)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"variants: phase {out['phase_s']:.1f} s")
+    report["variants"] = out
+
+
 def kernel_summary(torch, prof, wall_ms: float, named=()) -> dict:
     """What a finished torch.profiler run saw on the card during `wall_ms`
     of host time: the device ms its kernels took, the busy share, the count
@@ -4433,7 +4949,16 @@ def summary_line(report) -> str:
                 f"{rf['ms_per_step']:.2f} ms a step at {rf['faces']:.0f} faces, card vs cpu "
                 f"{rf['meshes'][0]['cpu_max_diff_over_box']:.3g} of the box, phase "
                 f"{sn['phase_s']:.0f} s; ")
-    return (f"summary: {heads}{recon}{more}{evals}{shapenet}"
+    va = report["variants"]
+    abl = ", ".join(f"{k} {v['pallas_attention=True']['ms']:.2f}/"
+                    f"{v['pallas_attention=False']['ms']:.2f}"
+                    for k, v in va["ablation"].items())
+    opts = ", ".join(f"{k} {v['ms']:.2f}" for k, v in va["options"].items())
+    vt = va["training"]
+    variants = (f"variants: encode_fps ms {opts}; ablation (fused/default) {abl}; "
+                f"center_pred false + inner step {vt['step_ms']:.2f} ms; udf "
+                f"{va['udf']['r5_decoder']['ms']:.0f} ms; phase {va['phase_s']:.0f} s; ")
+    return (f"summary: {heads}{recon}{more}{evals}{shapenet}{variants}"
             f"scene-pairs/s fused {report['pipeline']['scene_pairs_per_s']:.4f}, "
             f"default {report['pipeline_default_config']['scene_pairs_per_s']:.4f}, "
             f"optim {report['pipeline_optim']['scene_pairs_per_s']:.4f}; training step "
@@ -4507,6 +5032,7 @@ def main() -> int:
     phase_eval(torch, report)
     phase_training(torch, report, args.profile)
     phase_shapenet(torch, report)
+    phase_variants(torch, report, state, ref_np)
 
     sources = {
         "fps": ("livingscenes_tpu_torch/csrc/fps.cu",

@@ -4,9 +4,11 @@
 the standard library and numpy alone, and `params_from_jax` maps the flax
 parameter tree onto the port's state-dict keys (those of the reference
 model, as livingscenes_tpu/models/convert.py:177 exports them, for the
-encoder; "decoder.lin.<i>.{v,g,b}" and, for a plain dense layer,
-"decoder.lin.<i>.{kernel,bias}" for the DeepSDF decoder, whose matrices keep
-the flax (in, out) orientation).
+attention encoder; the flax path joined by dots for the ablation encoders,
+DecoderCat, the ONet decoders and the positional-encoding projector, whose
+modules keep flax's names; "decoder.lin.<i>.{v,g,b}" and, for a plain dense
+layer, "decoder.lin.<i>.{kernel,bias}" for the DeepSDF decoder). Matrices
+keep the flax orientation. `params_to_jax` is its inverse.
 """
 from __future__ import annotations
 
@@ -129,39 +131,78 @@ def load_flax_checkpoint(path: str) -> Dict:
     return payload["params"]
 
 
+def _leaves(node, path=()):
+    """(path, array) of every leaf of a nested dict."""
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, node
+
+
+def _port_name(comp: str, name: str) -> str:
+    """The port's module name of a flax top-level entry of a component:
+    V_i -> V_list.i (Q_, K_ likewise), global_conv_j -> global_conv_list.
+    (j - 2) in the attention encoder; lin<i> -> lin.<i> in the DeepSDF
+    decoder; any other name is kept."""
+    if comp == "encoder":
+        if name[:2] in ("V_", "Q_", "K_") and name[2:].isdigit():
+            return f"{name[0]}_list.{name[2:]}"
+        if name.startswith("global_conv_"):
+            j = int(name.rsplit("_", 1)[1]) - RES_GLOBAL_START_LAYER
+            return f"global_conv_list.{j}"
+    if comp == "decoder" and name.startswith("lin") and name[3:].isdigit():
+        return f"lin.{name[3:]}"
+    return name
+
+
+def _flax_name(comp: str, parts) -> tuple:
+    """The inverse of _port_name on a state-dict key's parts after the
+    component: (flax top-level name, the rest of the path)."""
+    if comp == "encoder" and parts[0] in ("V_list", "Q_list", "K_list"):
+        return (f"{parts[0][0]}_{parts[1]}",) + tuple(parts[2:])
+    if comp == "encoder" and parts[0] == "global_conv_list":
+        return (f"global_conv_{int(parts[1]) + RES_GLOBAL_START_LAYER}",) + tuple(parts[2:])
+    if comp == "decoder" and parts[0] == "lin" and parts[1].isdigit():
+        return (f"lin{parts[1]}",) + tuple(parts[2:])
+    return tuple(parts)
+
+
 def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
     """Map the flax tree {"encoder": {...}, "decoder": {...}[, "cls_head":
-    {...}]} to the port's state dict (keys "encoder.V_list.0.lin.weight",
-    "decoder.lin.0.v", "cls_head.lin0.kernel", ...).
-    No tensor is transposed: VecLinear weights are stored (out, in) on both
-    sides and the decoder's matrices (in, out) on both sides."""
+    {...}][, "pe_projector": {...}]} to the port's state dict (keys
+    "encoder.V_list.0.lin.weight", "encoder.conv1.lin.weight",
+    "decoder.lin.0.v", "decoder.block0_fc0.kernel", "cls_head.lin0.kernel",
+    "pe_projector.weight", ...). No tensor is transposed: VecLinear weights are stored (out, in) on both
+    sides and dense matrices (in, out) on both sides."""
     out: Dict[str, torch.Tensor] = {}
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(v, path + [k])
-            return
-        name, rest = path[0], path[1:]
-        if name[:2] in ("V_", "Q_", "K_") and name[2:].isdigit():
-            key = f"{name[0]}_list.{name[2:]}"
-        elif name.startswith("global_conv_"):
-            j = int(name.rsplit("_", 1)[1]) - RES_GLOBAL_START_LAYER
-            key = f"global_conv_list.{j}"
-        else:
-            key = name
-        out[".".join(["encoder", key] + rest)] = torch.from_numpy(np.array(node))
-
-    walk(params["encoder"], [])
-    for name, layer in params["decoder"].items():
-        if not (name.startswith("lin") and name[3:].isdigit()):
-            raise ValueError(f"unexpected decoder entry {name!r}")
-        for leaf, value in layer.items():
-            out[f"decoder.lin.{name[3:]}.{leaf}"] = torch.from_numpy(np.array(value))
-    for name, layer in params.get("cls_head", {}).items():
-        for leaf, value in layer.items():
-            out[f"cls_head.{name}.{leaf}"] = torch.from_numpy(np.array(value))
+    for comp, tree in params.items():
+        for path, value in _leaves(tree):
+            key = [_port_name(comp, path[0])] + list(path[1:])
+            out[".".join([comp] + key)] = torch.from_numpy(np.array(value))
     return out
+
+
+def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of `params_from_jax`: the port's state dict as a flax
+    tree of numpy arrays, {component: {name: {...}}}."""
+    out: Dict = {}
+    for key, value in state.items():
+        comp, *parts = key.split(".")
+        node = out.setdefault(comp, {})
+        path = _flax_name(comp, parts)
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = value.detach().cpu().numpy()
+    return out
+
+
+def module_params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
+    """A flax tree of one module (an encoder or decoder on its own, an ONet
+    decoder, a layer) as that module's state dict: the flax paths joined by
+    dots."""
+    return {".".join(path): torch.from_numpy(np.array(value))
+            for path, value in _leaves(tree)}
 
 
 def _decoder_layer(name: str) -> str:
@@ -179,8 +220,9 @@ def state_dict_from_torch(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor
     "lin<i>.weight_g" (out, 1) and "lin<i>.bias" becomes "decoder.lin.<i>.v"
     (in, out), ".g" (out,) and ".b", in either torch layout of weight norm;
     a plain one "lin<i>.weight" and ".bias" becomes ".kernel" (in, out) and
-    ".bias". Keys of neither part (the reference's classification head or
-    positional-encoding projector, which the port has not) raise."""
+    ".bias". The positional-encoding projector's "pe_projector.weight"
+    keeps its (out, in - 1) layout. Keys of no part (the reference's
+    classification head among them) raise."""
     out: Dict[str, torch.Tensor] = {}
     decoder: Dict[str, Dict[str, torch.Tensor]] = {}
     for key, value in sd.items():
@@ -192,6 +234,9 @@ def state_dict_from_torch(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor
             rest = parts[parts.index("decoder") + 1:]
             decoder.setdefault(_decoder_layer(rest[0]), {})[".".join(rest[1:])] = (
                 value.detach().cpu())
+        elif "pe_projector" in parts:
+            rest = parts[parts.index("pe_projector") + 1:]
+            out[".".join(["pe_projector"] + rest)] = value.detach().cpu()
         else:
             raise ValueError(f"checkpoint key {key!r} belongs to no part of the "
                              "port's model")
@@ -219,8 +264,8 @@ def state_dict_to_torch(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tenso
     out: Dict[str, torch.Tensor] = {}
     for key, value in state.items():
         comp, rest = key.split(".", 1)
-        if comp == "encoder":
-            out[f"network_dict.encoder.{rest}"] = value
+        if comp in ("encoder", "pe_projector"):
+            out[f"network_dict.{comp}.{rest}"] = value
             continue
         _, i, leaf = rest.split(".")
         name = f"network_dict.decoder.lin{i}"

@@ -15,7 +15,9 @@ model-selection metric. Randomness (with `rot_aug` the rotations, then the
 centre jitter, then the decoder's dropout) comes from one `torch.Generator`
 the caller passes; with none, the loss is deterministic.
 
-Options, each off in every shipped config:
+The model's options (ShapePriorConfig: center_pred, the decoder types,
+use_pe, the encoder types) reach the loss through the encoder's outputs
+and decode_sdf. Options of the loss, each off in every shipped config:
 - `rot_aug`: one uniform random rotation per cloud, applied to the inputs
   and to the queries alike (the decoder reads the queries through the
   rotation-invariant <q, z_so3>, so a query left unrotated would be
@@ -74,16 +76,20 @@ class SIM3Recon:
     def _encode_training(self, inputs: torch.Tensor,
                          generator: Optional[torch.Generator], train: bool):
         """Centroid split, optional centre jitter, the raw encoder call.
-        Returns (codes, pred_scale, centroid + predicted centre)."""
+        Returns (codes, pred_scale, centroid + predicted centre); an encoder
+        of three outputs (no centre head) leaves the centroid as it is."""
         centroid = torch.mean(inputs, dim=1)  # (B, 3)
         std = self.loss_cfg.center_aug_std
         if train and std > 0 and generator is not None:
             noise = torch.randn(centroid.shape, generator=generator,
                                 device=centroid.device, dtype=centroid.dtype)
             centroid = centroid + std * noise
-        center, pred_scale, z_so3, z_inv = self.prior.encoder(
-            inputs - centroid[:, None, :])
-        centroid = center[:, 0, :] + centroid
+        out = self.prior.encoder(inputs - centroid[:, None, :])
+        if len(out) == 4:
+            center, pred_scale, z_so3, z_inv = out
+            centroid = center[:, 0, :] + centroid
+        else:
+            pred_scale, z_so3, z_inv = out
         codes = {"z_so3": z_so3, "z_inv": z_inv, "s": pred_scale,
                  "t": centroid[:, None, :]}
         return codes, pred_scale, centroid

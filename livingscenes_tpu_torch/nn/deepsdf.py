@@ -1,7 +1,7 @@
-"""The DeepSDF implicit-field decoder.
+"""The DeepSDF implicit-field decoder, and the concat-input MLP decoder.
 
 Counterpart of livingscenes_tpu/nn/deepsdf.py (`WNDense`,
-`DeepSDFDecoder`): an 8 x 768 MLP whose input, the invariant query
+`DeepSDFDecoder`, `DecoderCat`). DeepSDFDecoder is an 8 x 768 MLP whose input, the invariant query
 [z_inv (256) | <q, z_so3> (256) | |q| (1)], is concatenated back in at
 layer 4, with ReLU, dropout in train mode only (flax's: keep with
 probability 1 - p and scale by 1 / (1 - p), the masks drawn from a
@@ -10,6 +10,8 @@ are weight-normalized, a ninth (the production decoder's output layer) is a
 plain dense layer. The large matrix products stay `F.linear`, as they are
 plain matmuls in the JAX package. `v` and `kernel` keep the flax (in, out)
 orientation and the flax names, so a flax tree loads without a transpose.
+DecoderCat (decoder types `inner` and `inv_mlp`) is a residual MLP of
+plain dense layers with a leaky ReLU and no dropout.
 """
 from __future__ import annotations
 
@@ -119,3 +121,33 @@ def dropout(h: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tens
     keep = torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - p
     return torch.where(keep, h / (1.0 - p), torch.zeros((), dtype=h.dtype,
                                                        device=h.device))
+
+
+class DecoderCat(nn.Module):
+    """Concat-input MLP: fc_in, n_blocks residual blocks of two dense
+    layers (block{i}_fc0, block{i}_fc1), fc_out after the activation, a
+    leaky ReLU (slope 0.2) or with leaky=False a ReLU; (..., input_dim) ->
+    (...,). It has no dropout: the `generator` decode_sdf passes is not
+    read."""
+
+    def __init__(self, input_dim: int = 513, hidden_size: int = 512,
+                 n_blocks: int = 5, leaky: bool = True):
+        super().__init__()
+        self.n_blocks, self.leaky = n_blocks, leaky
+        self.fc_in = Dense(input_dim, hidden_size)
+        for i in range(n_blocks):
+            self.add_module(f"block{i}_fc0", Dense(hidden_size, hidden_size))
+            self.add_module(f"block{i}_fc1", Dense(hidden_size, hidden_size))
+        self.fc_out = Dense(hidden_size, 1)
+
+    def _act(self, h: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(h, 0.2) if self.leaky else torch.relu(h)
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        h = self.fc_in(x)
+        for i in range(self.n_blocks):
+            dx = getattr(self, f"block{i}_fc0")(self._act(h))
+            dx = getattr(self, f"block{i}_fc1")(self._act(dx))
+            h = h + dx
+        return self.fc_out(self._act(h))[..., 0]

@@ -1,4 +1,5 @@
-"""Reconstruction: occupancy grids of decoded fields and host meshing."""
+"""Reconstruction: occupancy grids of decoded fields and host meshing, and
+surface points of unsigned distance fields."""
 from .extractor import MeshExtractor, MeshExtractorConfig
 from .grid import (
     dense_grid_values,
@@ -6,6 +7,7 @@ from .grid import (
     hierarchical_grid_values,
 )
 from .mesh import Mesh
+from .udf import UDFDraws, UDFExtractorConfig, extract_surface_points
 
 __all__ = [
     "Mesh",
@@ -14,4 +16,7 @@ __all__ = [
     "grid_coordinates",
     "MeshExtractor",
     "MeshExtractorConfig",
+    "UDFDraws",
+    "UDFExtractorConfig",
+    "extract_surface_points",
 ]

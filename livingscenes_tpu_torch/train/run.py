@@ -40,11 +40,6 @@ def build_model(cfg: dict, device=None) -> SIM3Recon:
     m = cfg.get("model", {})
     enc = m.get("encoder", {})
     dec = m.get("decoder", {})
-    for key, want in (("center_pred", True), ("center_pred_scale", True)):
-        if enc.get(key, want) != want:
-            raise NotImplementedError(f"model.encoder.{key}={enc[key]} is not ported")
-    if m.get("decoder_type", "inner_deepsdf") != "inner_deepsdf":
-        raise NotImplementedError(f"decoder_type {m['decoder_type']} is not ported")
     prior_cfg = ShapePriorConfig(
         c_dim=enc.get("c_dim", 256),
         num_layers=enc.get("num_layers", 7),
@@ -55,6 +50,9 @@ def build_model(cfg: dict, device=None) -> SIM3Recon:
         atten_multi_head_c=enc.get("atten_multi_head_c", 16),
         num_knn=enc.get("num_knn", 16),
         scale_factor=enc.get("scale_factor", 64000.0),
+        center_pred=enc.get("center_pred", True),
+        center_pred_scale=enc.get("center_pred_scale", True),
+        decoder_type=m.get("decoder_type", "inner_deepsdf"),
         decoder_dims=tuple(dec.get("dims", (768,) * 8)),
         decoder_dropout_prob=dec.get("dropout_prob", 0.2),
         decoder_latent_in=tuple(dec.get("latent_in", (4,))),

@@ -121,6 +121,8 @@ class Trainer:
                            "decoder": list(prior.decoder.parameters())}
         if prior.cls_head is not None:
             self.components["cls_head"] = list(prior.cls_head.parameters())
+        if prior.pe_projector is not None:
+            self.components["pe_projector"] = list(prior.pe_projector.parameters())
         self.params: List[torch.Tensor] = [
             p for ps in self.components.values() for p in ps]
 

@@ -12,6 +12,7 @@ each of three Trainer steps the parameters within 1e-10 (updates are about
 1e-4) and grad_norm rtol 1e-8; the learning rate rtol 1e-6 (JAX computes
 it in f32). The resumed run equals the uninterrupted one exactly.
 """
+import json
 import os
 
 import jax
@@ -303,14 +304,24 @@ def test_run_epochs_takes_whole_passes(params, tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """The options still unported raise (decoder_type, center_pred); the
-    ported ones (rot_aug, decoder_bf16, viz_iter_interval) build."""
-    for key, value in (("decoder_type", "onet"), ("center_pred", False),
-                       ("center_pred_scale", False)):
+    """build_model raises what JAX's raises: an unknown decoder_type (onet)
+    and an unknown encoder_type give ValueError; center_pred: false,
+    center_pred_scale: false and the decoder types deepsdf, inner and
+    inv_mlp build; the other ported options (rot_aug, decoder_bf16,
+    viz_iter_interval) build too."""
+    with pytest.raises(ValueError, match="unknown decoder_type onet"):
+        prun.build_model({"model": {"decoder_type": "onet"}}, device="cpu")
+    with pytest.raises(ValueError, match="unknown encoder_type"):
+        SIM3Recon(ShapePriorConfig(**TINY, encoder_type="pointnet2"), device="cpu")
+    for key, value in (("center_pred", False), ("center_pred_scale", False),
+                       ("decoder_type", "deepsdf"), ("decoder_type", "inner"),
+                       ("decoder_type", "inv_mlp")):
         cfg = {"model": {"encoder": {}}}
         (cfg["model"] if key == "decoder_type" else cfg["model"]["encoder"])[key] = value
-        with pytest.raises(NotImplementedError):
-            prun.build_model(cfg, device="cpu")
+        model = prun.build_model(cfg, device="cpu")
+        assert getattr(model.config, key) == value
+    cfg = {"model": {"encoder": {"center_pred": False}}}
+    assert not hasattr(prun.build_model(cfg, device="cpu").prior.encoder, "fc_center")
     cfg = {"model": {"rot_aug": True, "decoder_bf16": True}}
     loss_cfg = prun.build_model(cfg, device="cpu").loss_cfg
     assert loss_cfg.rot_aug and loss_cfg.decoder_bf16
@@ -318,6 +329,43 @@ def test_unported_options_raise(tmp_path):
                       decoder_bf16=True), device="cpu")
     trainer = Trainer(model, TrainerConfig(log_dir=str(tmp_path), viz_iter_interval=5))
     assert trainer.cfg.viz_iter_interval == 5
+
+
+def test_deepsdf_decoder_type_is_inner_deepsdf(tmp_path):
+    """decoder_type: deepsdf builds the DeepSDF decoder of inner_deepsdf
+    (JAX models/shape_prior.py:125): the same parameters from the same seed
+    and the same loss on the same batch, bit for bit."""
+    models = []
+    for decoder_type in ("inner_deepsdf", "deepsdf"):
+        cfg = prun.apply_overrides(prun.load_config(tiny_config(tmp_path)),
+                                   [f"model.decoder_type={decoder_type}"])
+        models.append(prun.build_model(cfg, device="cpu"))
+    a, b = (m.prior.state_dict() for m in models)
+    assert list(a) == list(b)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    batch = to_torch({k: v.astype(np.float32) for k, v in batches(1)[0].items()})
+    losses = [m.loss(batch, torch.Generator().manual_seed(3), train=True)[0]
+              for m in models]
+    assert torch.equal(losses[0], losses[1])
+
+
+@pytest.mark.parametrize("override", ["model.decoder_type=inner",
+                                      "model.decoder_type=inv_mlp",
+                                      "model.decoder_type=deepsdf",
+                                      "model.encoder.center_pred=false"])
+def test_model_variants_train_from_yaml(tmp_path, override):
+    """A YAML with each of these options trains through train.run.main on
+    the CPU: two steps, a finite loss, the option in the model."""
+    trainer, state = prun.main(["--config", tiny_config(tmp_path), "--device", "cpu",
+                                "--total-iter", "2", "--override", override])
+    assert state.step == 2
+    key, value = override.rsplit(".", 1)[1].split("=")
+    want = {"false": False}.get(value, value)
+    assert getattr(trainer.model.config, key) == want
+    with open(os.path.join(trainer.cfg.log_dir, "metrics.jsonl")) as f:
+        last = [r for r in map(json.loads, f) if "grad_norm" in r][-1]
+    assert last["step"] == 2
+    assert np.isfinite(last["batch_loss"]) and np.isfinite(last["grad_norm"])
 
 
 def test_anomaly_mode_raises_on_nan(params, tmp_path):
