@@ -135,7 +135,14 @@
    to inner_deepsdf's bit for bit; the ONet decoders and
    extract_surface_points, card against CPU. Its bounds are in its
    docstring.
-12. Prints a `kernels` JSON line (all 14 kernels), a line of headline
+12. Data parallelism over torch.distributed (phase_sharded): two gloo
+   ranks on the one card (two nccl ranks must be refused) run the
+   scene-sharded pipeline at full width against phase_pipeline's output,
+   optim=True and recon=True at reduced depth, a qp-sharded MeshExtractor
+   grid and two data-parallel training steps at batch 64, each against the
+   unsharded run; then one nccl rank runs the pipeline through a mesh of
+   size 1. Its bounds are in its docstring.
+13. Prints a `kernels` JSON line (all 14 kernels), a line of headline
    figures, the card line, and as its last line {"ok": true, "device":
    {...}}.
 
@@ -1734,7 +1741,8 @@ def run_config(torch, state, scenes, fused: bool, want: dict, n_timed: int,
 def phase_pipeline(torch, report, state, scenes, profile: bool):
     """This slice's path (the fused encoder) with the full timing protocol,
     then the default-config path with fewer timed calls, then the two held
-    against each other. Returns the fused path's launch counts."""
+    against each other. Returns the fused path's launch counts and the
+    output of its counted call."""
     per_encode = {"knn_topk": 1, "layer0": 1, "edge_mean": 1,
                   "edge_mean_products": 2,
                   "edge_attention": len(KNN_LAYERS) - 2,
@@ -1759,7 +1767,7 @@ def phase_pipeline(torch, report, state, scenes, profile: bool):
     report["pipeline"] = fused
     report["pipeline_default_config"] = plain
     report["config_check"] = {"max_abs_dR": dR, "max_abs_dt": dt}
-    return fused["launches"]
+    return fused["launches"], out_f
 
 
 def make_shape_scenes(rng, n_scenes, n_pts=N_FULL):
@@ -4743,6 +4751,585 @@ def phase_variants(torch, report, state, ref_np):
     report["variants"] = out
 
 
+# --- data parallelism over torch.distributed (phase_sharded) ---------------
+
+SHARDED_RANKS = 2  # gloo ranks on the one card
+SHARDED_OPTIM_STEPS = 20  # refinement steps of the optim=True check
+SHARDED_RECON = dict(recon_resolution0=16, recon_upsampling_steps=1)  # 33^3 grids
+SHARDED_OPTIM_TOL = 2e-3  # phase_optim's card-against-CPU bound after ICP
+SHARDED_TIMED = 3  # timed calls of each pipeline measurement
+SHARDED_DEADLINE_S = 400  # the ranks are killed past this
+
+
+def sharded_fail(msg):
+    raise AssertionError(f"sharded: {msg}")
+
+
+def on_card(torch, tag, tensors):
+    """Fail unless every tensor lies on a CUDA device."""
+    bad = [k for k, v in tensors.items() if torch.is_tensor(v) and v.device.type != "cuda"]
+    if bad:
+        sharded_fail(f"{tag}: tensors off the card: {bad}")
+
+
+def median_ms(torch, fn, n=SHARDED_TIMED):
+    """fn() once to warm up, then the median host ms of n calls, each ended
+    by a sync; returns (last result, ms)."""
+    out = fn()
+    samples = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(samples))
+
+
+def host_arrays(out) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def sharded_train_step(torch, trainer, state, batches):
+    """One step split open (loss_and_grads, apply_gradients) on batches[0],
+    then train_step on batches[1] with its launches counted and the plain
+    versions forbidden: (the first step's loss, gradients (numpy) and
+    grad_norm, the second step's loss and grad_norm, its launches)."""
+    placed = trainer.place_batch(batches[0])
+    metrics, grads = trainer.loss_and_grads(
+        placed, trainer.step_generator(state.step, len(batches[0]["inputs"])))
+    norm = trainer.apply_gradients(state, grads)
+    state.step += 1
+    with forbid_plain():
+        m2, launches = counted(lambda: trainer.train_step(state, batches[1]))
+    torch.cuda.synchronize()
+    return {"loss": float(metrics["batch_loss"]), "grad_norm": float(norm),
+            "grads": [g.detach().double().cpu().numpy() for g in grads],
+            "loss2": float(m2["batch_loss"]), "grad_norm2": float(m2["grad_norm"]),
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def sharded_rank(rank, world, tmp, spec):
+    """One rank of phase_sharded (started by torch.multiprocessing.spawn
+    after the parent built the kernels): two ranks asking for nccl on the
+    one card must be refused; then under gloo, on the card, the scene-pair
+    pipeline at full width (launches counted, plain versions forbidden),
+    at reduced depth with optim=True and with recon=True, a qp-sharded
+    MeshExtractor grid, and two data-parallel training steps at batch 64.
+    Writes its outputs and times under tmp for the parent to hold."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from livingscenes_tpu_torch.models.shape_prior import (
+        ShapePrior, ShapePriorConfig, slice_codes)
+    from livingscenes_tpu_torch.ops import _cuda
+    from livingscenes_tpu_torch.parallel import (
+        gather_batch, initialize_distributed, make_mesh, shard_batch)
+    from livingscenes_tpu_torch.recon.extractor import MeshExtractor
+    from livingscenes_tpu_torch.solver.pipeline import build_scene_pair_pipeline
+    from livingscenes_tpu_torch.train import run as train_run
+    from livingscenes_tpu_torch.train.trainer import Trainer
+
+    _cuda.lib()
+    result = {"rank": rank}
+    try:
+        initialize_distributed(backend="nccl", init_method=f"file://{tmp}/nccl_{world}",
+                               world_size=world, rank=rank)
+    except RuntimeError as e:
+        result["nccl_refusal"] = str(e)
+    else:
+        sharded_fail(f"rank {rank}: {world} nccl ranks on one card were not refused")
+    if dist.is_initialized():
+        sharded_fail(f"rank {rank}: the refused nccl group is initialized")
+    initialize_distributed(backend="gloo", init_method=f"file://{tmp}/gloo",
+                           world_size=world, rank=rank)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dp, qp = make_mesh(axis_names=("dp",)), make_mesh(axis_names=("qp",))
+    log(f"sharded: rank {rank} of {world}: device {dev} "
+        f"({torch.cuda.get_device_name(dev)}), backend {dist.get_backend()}, mesh {dp}")
+    result["device"] = str(dev)
+    with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    state, cfgs = inputs["state"], spec["configs"]
+
+    model = ShapePrior(ShapePriorConfig(pallas_attention=True), device="cuda")
+    model.load_state_dict(state)
+    on_card(torch, f"rank {rank} weights", dict(model.state_dict()))
+    outs = {}
+    # the full-width pipeline: gathered, local (this rank's scenes alone),
+    # and the gather alone
+    ref, res, mask = (torch.as_tensor(a, device="cuda") for a in inputs["scenes"])
+    args = (ref, res, mask, mask)
+    pipe = build_scene_pair_pipeline(model, cfgs["pipeline"], mesh=dp)
+    pipe(*args)
+    torch.cuda.synchronize()
+    with forbid_plain():
+        out, launches = counted(lambda: pipe(*args))
+    torch.cuda.synchronize()
+    on_card(torch, f"rank {rank} pipeline", out)
+    result["launches"] = {k: v for k, v in launches.items() if v}
+    _, result["gathered_ms"] = median_ms(torch, lambda: pipe(*args))
+    local_pipe = build_scene_pair_pipeline(model, cfgs["pipeline"])
+    local_args = [shard_batch(a, dp) for a in args]
+    local, result["local_ms"] = median_ms(torch, lambda: local_pipe(*local_args))
+    _, result["gather_ms"] = median_ms(torch, lambda: gather_batch(local, dp))
+    outs["pipeline"] = host_arrays(out)
+    # reduced depth: the refinement, and the recon grids of shape scenes
+    t0 = time.perf_counter()
+    optim = build_scene_pair_pipeline(model, cfgs["optim"], mesh=dp)(*args)
+    torch.cuda.synchronize()
+    result["optim_s"] = time.perf_counter() - t0
+    on_card(torch, f"rank {rank} optim", optim)
+    outs["optim"] = host_arrays(optim)
+    sref, sres = (torch.as_tensor(a, device="cuda") for a in inputs["shapes"])
+    smask = torch.ones(sref.shape[:3], dtype=torch.bool, device="cuda")
+    recon_pipe = build_scene_pair_pipeline(model, cfgs["recon"], mesh=dp)
+    recon, result["recon_ms"] = median_ms(torch, lambda: recon_pipe(sref, sres, smask, smask))
+    on_card(torch, f"rank {rank} recon", recon)
+    outs["recon"] = host_arrays(recon)
+    # the qp-sharded extractor on the first shape's canonical code
+    with torch.no_grad():
+        one = slice_codes(model.encode_fps(sref[0], smask[0]), 0)
+    canonical = dict(one, s=torch.ones_like(one["s"]), t=torch.zeros_like(one["t"]))
+    ext = MeshExtractor(model.occupancy_logits, spec["extractor"], mesh=qp)
+    (grid, overflow), result["extractor_ms"] = median_ms(
+        torch, lambda: ext.compute_grid(canonical))
+    on_card(torch, f"rank {rank} extractor", {"grid": grid})
+    outs["extractor"] = {"grid": grid.cpu().numpy(), "overflow": overflow.cpu().numpy()}
+    del model, pipe, local_pipe, recon_pipe, ext
+    torch.cuda.empty_cache()
+    # two data-parallel training steps from r5
+    tmodel = train_run.build_model(spec["train_cfg"], device="cuda")
+    tmodel.prior.load_state_dict(state)
+    trainer = Trainer(tmodel, spec["trainer_cfg"], mesh=dp)
+    tstate = trainer.init_state()
+    t0 = time.perf_counter()
+    train = sharded_train_step(torch, trainer, tstate, inputs["batches"])
+    result["train_s"] = time.perf_counter() - t0
+    on_card(torch, f"rank {rank} training", dict(tmodel.prior.state_dict()))
+    outs["train"] = train
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump({"result": result, "outs": outs}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def step_graphs(torch, trainer, batch, step, rows=None):
+    """The kNN graphs and FPS picks of one training forward of a numpy
+    batch (train mode, step `step`'s draws) through an unsharded trainer;
+    with `rows`, of those rows alone with the whole batch's draws, as the
+    rank that holds them makes it."""
+    from livingscenes_tpu_torch.parallel import RowDraws
+
+    generator = trainer.generator(step)
+    if rows is not None:
+        generator = RowDraws(generator, rows, len(batch["inputs"]))
+        batch = {k: v[rows] for k, v in batch.items()}
+    with torch.no_grad(), record_graphs() as graphs:
+        trainer.model.loss(trainer.place_batch(batch), generator, train=True)
+    return graphs.calls
+
+
+def shard_equal_batch(torch, trainer, batch, spare, step, world):
+    """`batch` (numpy) with each cloud whose kNN graphs or FPS picks differ
+    between the whole batch's forward and its rank's rows' forward (the
+    encoder's products round by batch size) replaced by the next cloud of
+    `spare`: training_cpu_check's rule, since a near-tie swapped there turns
+    a cloud's codes by up to 1e-2 and its gradient past any rounding
+    tolerance. Returns (batch, [(cloud, first difference)])."""
+    B = len(batch["inputs"])
+    per = B // world
+    batch = {k: np.array(v) for k, v in batch.items()}
+    replaced, nxt = [], 0
+    for _ in range(4):
+        full = step_graphs(torch, trainer, batch, step)
+        first = [None] * B
+        for r in range(world):
+            rows = slice(r * per, (r + 1) * per)
+            part = step_graphs(torch, trainer, batch, step, rows)
+            first[rows] = graph_differences([(k, layer, a[rows]) for k, layer, a in full],
+                                            part, per)[0]
+        bad = [i for i, f in enumerate(first) if f]
+        if not bad:
+            return batch, replaced
+        for i in bad:
+            replaced.append((i, first[i]))
+            for k in batch:
+                batch[k][i] = spare[k][nxt]
+            nxt += 1
+    sharded_fail(f"training: no batch whose graphs agree at both batch sizes; {replaced}")
+
+
+def hold_grids(tag, a, b, thr):
+    """Grid a against grid b ((n, n, n) numpy, merged): every entry within
+    1e-4 of b's largest magnitude, or where they differ by more, a corner
+    near the threshold whose side differs between them (selection_witness:
+    the refine levels selected another point there)."""
+    scale = float(np.abs(b).max())
+    tol = 1e-4 * scale
+    diff = np.abs(a - b)
+    bad = np.flatnonzero(diff.reshape(-1) > tol)
+    witnesses = []
+    for p in bad[:64]:
+        w = selection_witness(a, b, p, thr, tol)
+        if w is None:
+            sharded_fail(f"{tag}: grid entry {int(p)} differs by {float(diff.flat[p])} "
+                         f"(bound {tol}) and no corner near the threshold explains it")
+        witnesses.append(w)
+    return {"max_abs_diff": float(diff.max()), "bound": tol,
+            "entries_past_bound": int(len(bad)), "witnessed": len(witnesses)}
+
+
+def hold_pipeline(torch, tag, got, want, r_tol, graphs_fn=None):
+    """A gathered pipeline output against the unsharded one (numpy dicts):
+    matches0 equal; R and t within r_tol, or, for the objects past it, a
+    kNN or FPS near-tie between the two runs backed by its witness
+    (graphs_fn(objects) -> {object: witness} runs them again, recording)."""
+    if not np.array_equal(got["matches0"], want["matches0"]):
+        sharded_fail(f"{tag}: matches0 {got['matches0'].tolist()} vs unsharded "
+                     f"{want['matches0'].tolist()}")
+    dR = np.abs(got["R"] - want["R"]).reshape(got["R"].shape[0], -1, 9).max(-1)
+    dt = np.abs(got["t"] - want["t"]).reshape(got["t"].shape[0], -1, 3).max(-1)
+    past = [tuple(int(i) for i in ix) for ix in np.argwhere((dR > r_tol) | (dt > 10 * r_tol))]
+    row = {"max_abs_dR": float(dR.max()), "max_abs_dt": float(dt.max()), "tol": r_tol,
+           "bit_equal": all(np.array_equal(got[k], want[k]) for k in want),
+           "past_tol": past}
+    if past:
+        if graphs_fn is None:
+            sharded_fail(f"{tag}: R or t past {r_tol} at {past}")
+        witness = graphs_fn(past)
+        row["tie_witness"] = {str(k): w for k, w in witness.items()}
+        for o, w in witness.items():
+            log_witness(f"sharded {tag}", f"scene, object {o}", w)
+        bad = [o for o in past if o not in witness or not witness[o]["near_tie"]]
+        if bad:
+            sharded_fail(f"{tag}: R or t past {r_tol} at {bad} with no near-tie witness")
+    log(f"sharded: {tag}: gathered vs unsharded: matches0 equal, max|dR| "
+        f"{row['max_abs_dR']:.3g}, max|dt| {row['max_abs_dt']:.3g} (bound {r_tol}; "
+        f"bit-equal: {row['bit_equal']}; past the bound: {past or 'none'})")
+    return row
+
+
+def shard_graph_witness(torch, model, cfg, args, world):
+    """graphs_fn for hold_pipeline: the unsharded run and each rank's own
+    scenes run alone (what that rank computed), both recording their kNN
+    graphs and FPS picks with inputs, and for each object (scene, o) past
+    the bound the tie witness of its first difference."""
+    from livingscenes_tpu_torch.solver.pipeline import build_scene_pair_pipeline
+
+    def fn(past):
+        S = args[0].shape[0]
+        per = S // world
+        pipe = build_scene_pair_pipeline(model, cfg)
+        with record_graphs(keep_inputs=True) as full:
+            out = pipe(*args)
+        found = {}
+        for r in range(world):
+            rows = [(s, o) for s, o in past if s // per == r]
+            if not rows:
+                continue
+            lo, hi = r * per * N_OBJ, (r + 1) * per * N_OBJ
+            with record_graphs(keep_inputs=True) as part:
+                pipe(*(a[r * per:(r + 1) * per] for a in args))
+            sliced = type("Sliced", (), {})()
+            sliced.calls = [(k, layer, a[lo:hi]) for k, layer, a in full.calls]
+            sliced.inputs = [tuple(t[lo:hi] for t in x) for x in full.inputs]
+            m = out["matches0"][r * per:(r + 1) * per].cpu()
+            flat = (torch.where(m >= 0, m, 0)
+                    + torch.arange(per)[:, None] * N_OBJ).reshape(-1)
+            _, witness = pair_graph_witnesses(torch, part, sliced, flat)
+            for s, o in rows:
+                j = (s - r * per) * N_OBJ + o
+                if j in witness:
+                    found[(s, o)] = witness[j]
+        return found
+
+    return fn
+
+
+def phase_sharded(torch, report, state, scenes, pipe_out, want_launches):
+    """Data parallelism over torch.distributed on the one card.
+
+    SHARDED_RANKS processes (torch.multiprocessing spawn, after the kernels
+    are built), each on the card: first each asks for a group of
+    SHARDED_RANKS nccl ranks and must be refused (NCCL cannot put two ranks
+    on one device); then under gloo (named explicitly, file:// rendezvous)
+    they run, through ("dp",) and ("qp",) meshes:
+
+    * the fused-encoder scene-pair pipeline at full width, r5 checkpoint,
+      8 x 8 x 4096 (phase_pipeline's scenes): each rank's launches counted
+      with every plain version forbidden (the unsharded call's counts:
+      every kernel of rows 1-7 ran on each rank's share); its gathered
+      output against phase_pipeline's unsharded one, matches0 equal, R
+      within 1e-3 and t within 1e-2 (phase_pipeline's bound between card
+      runs), or the object's kNN or FPS difference between the unsharded
+      run and the rank's own scenes run alone a near-tie by its witness;
+      the gathered call, the local call (the rank's scenes alone) and the
+      gather alone timed;
+    * at reduced depth: optim=True with SHARDED_OPTIM_STEPS steps (R within
+      2e-3) and recon=True at 33^3 on 2 pairs of shape scenes (R within
+      1e-3, every matched instance's merged grid as hold_grids holds it);
+    * a qp-sharded MeshExtractor grid (32^3 and two refine levels) against
+      the unsharded one (hold_grids);
+    * two training steps from r5 at batch 64 (configs/production_r5.yaml,
+      dropout and the centre jitter on: drawn for the global batch) against
+      the unsharded steps on the same batches: the first step's loss,
+      gradient norms per component and smallest cosine as phase_training
+      holds card against CPU (CPU_CHECK_TOL), the second's loss and
+      grad_norm to the same rtols, and its launches TRAIN_STEP_LAUNCHES
+      (rows 12-14 ran). As in phase_training's CPU check, a cloud whose
+      kNN graph or FPS picks differ between the whole batch's forward and
+      its rank's rows' forward is named and replaced by the next cloud of
+      the stream first (shard_equal_batch).
+
+    Every rank's tensors must lie on the card and every rank must return
+    the same gathered outputs. Then one rank under nccl, in this process:
+    the pipeline through a mesh of size 1 equal bit for bit to the run
+    without one, and an all_reduce through the nccl group."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from livingscenes_tpu_torch.models.shape_prior import (
+        ShapePrior, ShapePriorConfig, slice_codes)
+    from livingscenes_tpu_torch.parallel import initialize_distributed, make_mesh
+    from livingscenes_tpu_torch.recon.extractor import MeshExtractor, MeshExtractorConfig
+    from livingscenes_tpu_torch.recon.grid import apply_final_merge
+    from livingscenes_tpu_torch.solver.pipeline import (
+        PipelineConfig, build_scene_pair_pipeline)
+    from livingscenes_tpu_torch.solver.registration import RegistrationConfig
+    from livingscenes_tpu_torch.train import run as train_run
+    from livingscenes_tpu_torch.train.config import apply_overrides, load_config
+    from livingscenes_tpu_torch.train.data import batch_iterator
+    from livingscenes_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    world = SHARDED_RANKS
+    tmp = tempfile.mkdtemp(prefix="lstpu_sharded_")
+    rng = np.random.default_rng(3)
+    shapes = make_shape_scenes(rng, world)
+    train_cfg = apply_overrides(load_config(TRAIN_CONFIG), [
+        "dataset.n_train_items=128", "dataset.n_val_items=2", "dataset.ram_cache=false",
+        f"logging.log_dir={tmp}/run"])
+    trainer_cfg = train_run.build_trainer_cfg(train_cfg)
+    train_ds, _ = train_run.build_datasets(train_cfg)
+    it = batch_iterator(train_ds, trainer_cfg.batch_size, seed=1)
+    tmodel = train_run.build_model(train_cfg, device="cuda")
+    tmodel.prior.load_state_dict(state)
+    trainer = Trainer(tmodel, trainer_cfg)
+    batches, replaced = [], []
+    for step in range(2):
+        batch, swaps = shard_equal_batch(torch, trainer, next(it), next(it), step, world)
+        batches.append(batch)
+        replaced.append(swaps)
+    log("sharded: training batches: clouds replaced for a graph that differs between "
+        "the whole batch and a rank's rows: "
+        + "; ".join(f"step {i}: " + (", ".join(f"cloud {c} at {f}" for c, f in sw) or "none")
+                    for i, sw in enumerate(replaced)))
+    del trainer, tmodel
+    torch.cuda.empty_cache()
+    configs = {
+        "pipeline": PipelineConfig(encode_fps=True),
+        "optim": PipelineConfig(encode_fps=True, optim=True, registration=RegistrationConfig(
+            n_steps=SHARDED_OPTIM_STEPS)),
+        "recon": PipelineConfig(encode_fps=True, recon=True, **SHARDED_RECON),
+    }
+    ext_cfg = MeshExtractorConfig()
+    spec = {"configs": configs, "extractor": ext_cfg, "train_cfg": train_cfg,
+            "trainer_cfg": trainer_cfg}
+    with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
+        pickle.dump({"state": state, "scenes": scenes, "shapes": shapes,
+                     "batches": batches}, f)
+    torch.cuda.empty_cache()
+    result = {"ranks": world, "backend": "gloo"}
+    try:
+        t0 = time.perf_counter()
+        ctx = mp.spawn(sharded_rank, args=(world, tmp, spec), nprocs=world, join=False)
+        try:
+            while not ctx.join(timeout=5):  # raises if a rank failed
+                if time.perf_counter() - t0 > SHARDED_DEADLINE_S:
+                    sharded_fail(f"the ranks ran past {SHARDED_DEADLINE_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        result["ranks_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        log(f"sharded: {world} gloo ranks ran in {result['ranks_s']:.1f} s "
+            "(process start, kernel load and CUDA init included)")
+        for rk in ranks:
+            res = rk["result"]
+            if not res["device"].startswith("cuda"):
+                sharded_fail(f"rank {res['rank']} ran on {res['device']}")
+            if "NVIDIA" not in res["nccl_refusal"] or "gloo" not in res["nccl_refusal"]:
+                sharded_fail(f"rank {res['rank']}: refusal {res['nccl_refusal']!r}")
+            if res["launches"] != want_launches:
+                sharded_fail(f"rank {res['rank']}: pipeline launches {res['launches']}, "
+                             f"the unsharded call's {want_launches}")
+            if rk["outs"]["train"]["launches"] != TRAIN_STEP_LAUNCHES:
+                sharded_fail(f"rank {res['rank']}: training step launches "
+                             f"{rk['outs']['train']['launches']}, expected "
+                             f"{TRAIN_STEP_LAUNCHES}")
+        for key in ("pipeline", "optim", "recon", "extractor"):
+            for rk in ranks[1:]:
+                for k, v in ranks[0]["outs"][key].items():
+                    if not np.array_equal(v, rk["outs"][key][k]):
+                        sharded_fail(f"ranks 0 and {rk['result']['rank']} returned "
+                                     f"different {key} {k}")
+        r0 = ranks[0]["result"]
+        result["nccl_refusal"] = r0["nccl_refusal"]
+        result["per_rank"] = [rk["result"] for rk in ranks]
+        log("sharded: two nccl ranks on one card refused: " + r0["nccl_refusal"])
+        log("sharded: pipeline 8x8x4096 (ms, median of 3): "
+            + "; ".join(f"rank {rk['result']['rank']}: gathered "
+                        f"{rk['result']['gathered_ms']:.2f}, local (its "
+                        f"{N_SCENES // world} scenes alone) {rk['result']['local_ms']:.2f}, "
+                        f"gather {rk['result']['gather_ms']:.3f}" for rk in ranks)
+            + f"; unsharded {report['pipeline']['ms_per_call']:.2f}")
+
+        model = ShapePrior(ShapePriorConfig(pallas_attention=True), device="cuda")
+        model.load_state_dict(state)
+        ref, res, mask = (torch.as_tensor(a, device="cuda") for a in scenes)
+        args = (ref, res, mask, mask)
+        want = {k: v.cpu().numpy() for k, v in pipe_out.items()}
+        result["pipeline"] = hold_pipeline(
+            torch, "pipeline", ranks[0]["outs"]["pipeline"], want, 1e-3,
+            shard_graph_witness(torch, model, configs["pipeline"], args, world))
+        optim_want = host_arrays(build_scene_pair_pipeline(model, configs["optim"])(*args))
+        result["optim"] = hold_pipeline(
+            torch, f"optim=True ({SHARDED_OPTIM_STEPS} steps)", ranks[0]["outs"]["optim"],
+            optim_want, SHARDED_OPTIM_TOL,
+            shard_graph_witness(torch, model, configs["optim"], args, world))
+        sref, sres = (torch.as_tensor(a, device="cuda") for a in shapes)
+        smask = torch.ones(sref.shape[:3], dtype=torch.bool, device="cuda")
+        rcfg = configs["recon"]
+        recon_want = host_arrays(build_scene_pair_pipeline(model, rcfg)(
+            sref, sres, smask, smask))
+        got = ranks[0]["outs"]["recon"]
+        result["recon"] = hold_pipeline(torch, "recon=True", got, recon_want, 1e-3)
+        thr = float(np.log(rcfg.recon_threshold) - np.log(1.0 - rcfg.recon_threshold))
+        if not np.array_equal(got["grid_overflow"], recon_want["grid_overflow"]):
+            sharded_fail("recon: grid_overflow differs from the unsharded run")
+        held = []
+        for s, o in np.argwhere(recon_want["matches0"] >= 0):
+            merged = [apply_final_merge(d["grids_premerge"][s, o], d["grid_fidx"][s, o],
+                                        d["grid_fvals"][s, o]) for d in (got, recon_want)]
+            held.append(hold_grids(f"recon scene {s} instance {o}", *merged, thr))
+        result["recon"]["grids"] = {
+            "instances": len(held), "max_abs_diff": max(h["max_abs_diff"] for h in held),
+            "entries_past_bound": sum(h["entries_past_bound"] for h in held)}
+        log(f"sharded: recon grids ({len(held)} instances, 33^3): max|d| "
+            f"{result['recon']['grids']['max_abs_diff']:.3g}, entries past 1e-4 of "
+            f"the scale {result['recon']['grids']['entries_past_bound']} (witnessed)")
+        with torch.no_grad():
+            one = slice_codes(model.encode_fps(sref[0], smask[0]), 0)
+        canonical = dict(one, s=torch.ones_like(one["s"]), t=torch.zeros_like(one["t"]))
+        (grid, overflow), ext_ms = median_ms(
+            torch, lambda: MeshExtractor(model.occupancy_logits, ext_cfg).compute_grid(
+                canonical))
+        ext_got = ranks[0]["outs"]["extractor"]
+        if not np.array_equal(ext_got["overflow"], overflow.cpu().numpy()):
+            sharded_fail("extractor: overflow differs from the unsharded grid")
+        result["extractor"] = hold_grids("qp extractor", ext_got["grid"],
+                                         grid.cpu().numpy(), ext_cfg.logit_threshold)
+        result["extractor"].update(ms=r0["extractor_ms"], unsharded_ms=ext_ms)
+        log(f"sharded: qp MeshExtractor grid {grid.shape[0]}^3: max|d| "
+            f"{result['extractor']['max_abs_diff']:.3g} (entries past 1e-4 of the "
+            f"scale: {result['extractor']['entries_past_bound']}, witnessed); "
+            f"{r0['extractor_ms']:.2f} ms sharded, {ext_ms:.2f} ms unsharded")
+        del model
+        torch.cuda.empty_cache()
+
+        tmodel = train_run.build_model(train_cfg, device="cuda")
+        tmodel.prior.load_state_dict(state)
+        trainer = Trainer(tmodel, trainer_cfg)
+        train_want = sharded_train_step(torch, trainer, trainer.init_state(), batches)
+        train_got = ranks[0]["outs"]["train"]
+        # the gradients come in the order of trainer.params
+        name_of = {id(p): k for k, p in tmodel.prior.named_parameters()}
+        names = [name_of[id(p)] for p in trainer.params]
+        by_name = dict(zip(names, range(len(names))))
+        comps = {}
+        worst_cos, worst_name = 1.0, None
+        for comp in sorted({k.split(".")[0] for k in names}):
+            keys = [k for k in names if k.startswith(comp + ".")]
+            n_a = float(np.sqrt(sum(np.sum(train_got["grads"][by_name[k]] ** 2) for k in keys)))
+            n_b = float(np.sqrt(sum(np.sum(train_want["grads"][by_name[k]] ** 2)
+                                    for k in keys)))
+            comps[comp] = {"sharded": n_a, "unsharded": n_b, "rel": abs(n_a - n_b) / n_b}
+            for k in keys:
+                a = train_got["grads"][by_name[k]].ravel()
+                b = train_want["grads"][by_name[k]].ravel()
+                if np.linalg.norm(b) < 1e-6 * n_b:
+                    continue
+                cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+                if cos < worst_cos:
+                    worst_cos, worst_name = cos, k
+        rel = lambda k: abs(train_got[k] - train_want[k]) / abs(train_want[k])
+        row = {"loss_rel": rel("loss"), "grad_norms": comps, "min_cosine": worst_cos,
+               "min_cosine_param": worst_name, "loss2_rel": rel("loss2"),
+               "replaced": [[[c, f] for c, f in sw] for sw in replaced],
+               "grad_norm2_rel": rel("grad_norm2"), "launches": train_got["launches"],
+               "sharded_s": r0["train_s"]}
+        log(f"sharded: training, 2 steps at batch {trainer_cfg.batch_size} from r5, "
+            f"{world} ranks vs unsharded: step 1 loss {train_got['loss']:.7g} vs "
+            f"{train_want['loss']:.7g} (rel {row['loss_rel']:.3g}), gradient norms "
+            + ", ".join(f"{c} rel {v['rel']:.3g}" for c, v in comps.items())
+            + f", smallest cosine {worst_cos:.6f} ({worst_name}); step 2 loss rel "
+            f"{row['loss2_rel']:.3g}, grad_norm rel {row['grad_norm2_rel']:.3g}; "
+            f"launches a step {train_got['launches']}")
+        loss_rtol, norm_rtol, min_cos = CPU_CHECK_TOL
+        if (row["loss_rel"] > loss_rtol or row["loss2_rel"] > loss_rtol
+                or row["grad_norm2_rel"] > norm_rtol or worst_cos < min_cos
+                or any(v["rel"] > norm_rtol for v in comps.values())):
+            sharded_fail(f"training: sharded and unsharded steps differ beyond "
+                         f"{CPU_CHECK_TOL}")
+        result["training"] = row
+        del trainer, tmodel
+        torch.cuda.empty_cache()
+
+        # one rank under nccl: a mesh of size 1 runs unsharded
+        initialize_distributed(backend="nccl", init_method=f"file://{tmp}/nccl_1",
+                               world_size=1, rank=0)
+        try:
+            mesh = make_mesh(axis_names=("dp",))
+            model = ShapePrior(ShapePriorConfig(pallas_attention=True), device="cuda")
+            model.load_state_dict(state)
+            a = build_scene_pair_pipeline(model, configs["pipeline"], mesh=mesh)(*args)
+            b = build_scene_pair_pipeline(model, configs["pipeline"])(*args)
+            if not all(torch.equal(a[k], b[k]) for k in b):
+                sharded_fail("nccl: the size-1 mesh's pipeline differs from the unsharded")
+            x = torch.arange(1 << 20, dtype=torch.float32, device="cuda")
+            probe = x.clone()
+            group = mesh.get_group("dp")
+            _, nccl_ms = median_ms(torch, lambda: dist.all_reduce(probe, group=group))
+            if not torch.equal(probe, x):
+                sharded_fail("nccl: a one-rank all_reduce changed its input")
+            result["nccl_1_rank"] = {"bit_equal": True, "all_reduce_4MB_ms": nccl_ms,
+                                     "backend": dist.get_backend()}
+            log(f"sharded: one nccl rank: the pipeline through a size-1 mesh equals "
+                f"the unsharded run bit for bit; all_reduce of 4 MB {nccl_ms:.3f} ms")
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"sharded: phase took {result['phase_s']:.1f} s")
+    report["sharded"] = result
+
+
 def kernel_summary(torch, prof, wall_ms: float, named=()) -> dict:
     """What a finished torch.profiler run saw on the card during `wall_ms`
     of host time: the device ms its kernels took, the busy share, the count
@@ -4958,7 +5545,15 @@ def summary_line(report) -> str:
     variants = (f"variants: encode_fps ms {opts}; ablation (fused/default) {abl}; "
                 f"center_pred false + inner step {vt['step_ms']:.2f} ms; udf "
                 f"{va['udf']['r5_decoder']['ms']:.0f} ms; phase {va['phase_s']:.0f} s; ")
-    return (f"summary: {heads}{recon}{more}{evals}{shapenet}{variants}"
+    sh = report["sharded"]
+    r0 = sh["per_rank"][0]
+    sharded = (f"sharded ({sh['ranks']} gloo ranks on the card): pipeline gathered "
+               f"{r0['gathered_ms']:.2f} ms, local {r0['local_ms']:.2f}, gather "
+               f"{r0['gather_ms']:.3f}; max|dR| {sh['pipeline']['max_abs_dR']:.3g}, optim "
+               f"{sh['optim']['max_abs_dR']:.3g}; training loss rel "
+               f"{sh['training']['loss_rel']:.3g}, min cos "
+               f"{sh['training']['min_cosine']:.6f}; phase {sh['phase_s']:.0f} s; ")
+    return (f"summary: {heads}{recon}{more}{evals}{shapenet}{variants}{sharded}"
             f"scene-pairs/s fused {report['pipeline']['scene_pairs_per_s']:.4f}, "
             f"default {report['pipeline_default_config']['scene_pairs_per_s']:.4f}, "
             f"optim {report['pipeline_optim']['scene_pairs_per_s']:.4f}; training step "
@@ -5024,7 +5619,7 @@ def main() -> int:
     del model, calls
     torch.cuda.empty_cache()
     phase_small_shapes(torch, report)
-    launches = phase_pipeline(torch, report, state, scenes, args.profile)
+    launches, pipe_out = phase_pipeline(torch, report, state, scenes, args.profile)
     phase_recon(torch, report, state, launches)
     phase_scale(torch, report, state, pc[:, :N_RAGGED].contiguous())
     phase_optim(torch, report, state, args.profile)
@@ -5033,6 +5628,7 @@ def main() -> int:
     phase_training(torch, report, args.profile)
     phase_shapenet(torch, report)
     phase_variants(torch, report, state, ref_np)
+    phase_sharded(torch, report, state, scenes, pipe_out, launches)
 
     sources = {
         "fps": ("livingscenes_tpu_torch/csrc/fps.cu",

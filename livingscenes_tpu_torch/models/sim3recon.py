@@ -36,6 +36,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .. import se3
+from ..parallel.sharding import batch_draw
 from .shape_prior import ShapePrior, ShapePriorConfig
 
 Batch = Dict[str, torch.Tensor]
@@ -81,8 +82,8 @@ class SIM3Recon:
         centroid = torch.mean(inputs, dim=1)  # (B, 3)
         std = self.loss_cfg.center_aug_std
         if train and std > 0 and generator is not None:
-            noise = torch.randn(centroid.shape, generator=generator,
-                                device=centroid.device, dtype=centroid.dtype)
+            noise = batch_draw(torch.randn, centroid.shape, generator,
+                               device=centroid.device, dtype=centroid.dtype)
             centroid = centroid + std * noise
         out = self.prior.encoder(inputs - centroid[:, None, :])
         if len(out) == 4:

@@ -22,6 +22,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel.sharding import batch_draw
+
 # The layers that are weight-normalized and that drop out in train mode: the
 # JAX decoder's defaults, which no configuration changes.
 _NORM_LAYERS = tuple(range(8))
@@ -117,8 +119,10 @@ class DeepSDFDecoder(nn.Module):
 
 def dropout(h: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
     """flax.linen.Dropout: keep each entry with probability 1 - p and scale
-    the kept ones by 1 / (1 - p)."""
-    keep = torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - p
+    the kept ones by 1 / (1 - p). The mask is a batch draw: with a
+    RowDraws generator it is drawn for the whole batch and this rank's rows
+    kept."""
+    keep = batch_draw(torch.rand, h.shape, generator, device=h.device) < 1.0 - p
     return torch.where(keep, h / (1.0 - p), torch.zeros((), dtype=h.dtype,
                                                        device=h.device))
 

@@ -44,8 +44,8 @@ class EdgeVecLNA(nn.Module):
     def __init__(self, c_in: int, c_out: int, act_func):
         super().__init__()
         self.c_in, self.act_func = c_in, act_func
-        self.lin = VecLinear(2 * c_in, c_out)
-        self.act = VecActivation(c_out, act_func)
+        self.lin = VecLinear(2 * c_in, c_out, mode="so3")
+        self.act = VecActivation(c_out, act_func, mode="so3")
 
     def forward(self, src_f: torch.Tensor, dst_f: torch.Tensor,
                 idx: torch.Tensor) -> torch.Tensor:
@@ -70,8 +70,8 @@ class GlobalResVecLNA(nn.Module):
     def __init__(self, c_in: int, c_out: int, act_func):
         super().__init__()
         self.c_in = c_in
-        self.lin = VecLinear(2 * c_in, c_out)
-        self.act = VecActivation(c_out, act_func)
+        self.lin = VecLinear(2 * c_in, c_out, mode="so3")
+        self.act = VecActivation(c_out, act_func, mode="so3")
 
     def forward(self, f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         """f (B, N, C, 3), g (B, 1, C, 3) -> (B, N, c_out, 3)."""

@@ -52,7 +52,7 @@ class InvariantHeads(nn.Module):
 
     def __init__(self, c_dim: int):
         super().__init__()
-        self.fc_inv = VecLinear(c_dim, c_dim)
+        self.fc_inv = VecLinear(c_dim, c_dim, mode="so3")
 
     def forward(self, feat: torch.Tensor, scale_factor: float):
         z_so3 = channel_equi_vec_normalize(feat)
@@ -71,7 +71,8 @@ class VecDGCNN(nn.Module):
         act = leaky_relu(leak_neg_slope)
         for i, c_in in enumerate([1] + [hidden_dim] * 3):
             self.add_module(f"conv{i + 1}", EdgeVecLNA(c_in, hidden_dim, act))
-        self.conv_c = VecLNA(hidden_dim * 4, c_dim, act, shared_nonlinearity=True)
+        self.conv_c = VecLNA(hidden_dim * 4, c_dim, act, shared_nonlinearity=True,
+                             mode="so3")
         self.heads = InvariantHeads(c_dim)
 
     def forward(self, x: torch.Tensor):
@@ -105,7 +106,7 @@ class VecDGCNNV2(nn.Module):
                 self.add_module(f"global_conv{i}",
                                 GlobalResVecLNA(feat_dim[i], feat_dim[i], act))
         self.conv_c = VecLNA(feat_dim[num_layers - 1], c_dim, act,
-                             shared_nonlinearity=True)
+                             shared_nonlinearity=True, mode="so3")
         self.heads = InvariantHeads(c_dim)
 
     def forward(self, x: torch.Tensor):

@@ -108,23 +108,25 @@ class VecDGCNNAttn(nn.Module):
             c_in = 1 if i == 0 else self.feat_dim[i - 1]
             c_out = self.feat_dim[i]
             e_in = 3 if i == 0 else 2 * c_in
-            V[str(i)] = VecLNA(e_in, c_out, act,
+            V[str(i)] = VecLNA(e_in, c_out, act, mode="so3",
                                mm_bf16=self.mixed_precision and i < atten_start_layer)
             if i >= atten_start_layer:
-                K[str(i)] = VecLNA(e_in, c_out, act)
-                Q[str(i)] = VecLNA(c_in, c_out, act)
+                K[str(i)] = VecLNA(e_in, c_out, act, mode="so3")
+                Q[str(i)] = VecLNA(c_in, c_out, act, mode="so3")
             if i >= RES_GLOBAL_START_LAYER:
-                G[str(i - RES_GLOBAL_START_LAYER)] = VecLNA(2 * c_out, c_out, act)
+                G[str(i - RES_GLOBAL_START_LAYER)] = VecLNA(2 * c_out, c_out, act,
+                                                            mode="so3")
         self.V_list = nn.ModuleDict(V)
         self.Q_list = nn.ModuleDict(Q)
         self.K_list = nn.ModuleDict(K)
         self.global_conv_list = nn.ModuleDict(G)
-        self.conv_c = VecLNA(self.feat_dim[-1], c_dim, act, shared_nonlinearity=True)
-        self.fc_inv = VecLinear(c_dim, c_dim)
+        self.conv_c = VecLNA(self.feat_dim[-1], c_dim, act, shared_nonlinearity=True,
+                             mode="so3")
+        self.fc_inv = VecLinear(c_dim, c_dim, mode="so3")
         if z_so3_as_Omtx:
-            self.fc_O = VecLinear(c_dim, 3)
+            self.fc_O = VecLinear(c_dim, 3, mode="so3")
         if center_pred:
-            self.fc_center = VecResBlock(c_dim, 1, c_dim // 2, act)
+            self.fc_center = VecResBlock(c_dim, 1, c_dim // 2, act, mode="so3")
 
     def _knn_idx(self, src_f: torch.Tensor, dst_f: torch.Tensor) -> torch.Tensor:
         """Feature-space kNN graph (B, N_dst, K) of dst among src."""

@@ -10,8 +10,8 @@ Equivariance:
   so3 mode:  f(s R x) = s R f(x)
   se3 mode:  f(s R x + t) = s R f(x) + t  (per-channel translation)
 
-Unlike JAX's, the port's layers default to mode="so3", the mode of every
-layer of the production encoder; se3 is asked for by name.
+As JAX's, the layers default to mode="se3"; every layer of the encoders
+asks for so3 by name.
 """
 from __future__ import annotations
 
@@ -73,7 +73,7 @@ class VecLinear(nn.Module):
     """
 
     def __init__(self, v_in: int, v_out: int, s_in: int = 0, s_out: int = 0,
-                 mode: str = "so3", s2v_normalized_scale: bool = True,
+                 mode: str = "se3", s2v_normalized_scale: bool = True,
                  cross: bool = False, mm_bf16: bool = False):
         super().__init__()
         if mode not in ("so3", "se3"):
@@ -181,7 +181,7 @@ class VecActivation(nn.Module):
     about it."""
 
     def __init__(self, in_features: int, act_func, shared_nonlinearity: bool = False,
-                 mode: str = "so3", cross: bool = False, mm_bf16: bool = False):
+                 mode: str = "se3", cross: bool = False, mm_bf16: bool = False):
         super().__init__()
         self.act_func, self.mode = act_func, mode
         n_out = 1 if shared_nonlinearity else in_features
@@ -204,7 +204,7 @@ class VecLNA(nn.Module):
 
     def __init__(self, in_features: int, out_features: int, act_func,
                  shared_nonlinearity: bool = False, s_in_features: int = 0,
-                 s_out_features: int = 0, mode: str = "so3", cross: bool = False,
+                 s_out_features: int = 0, mode: str = "se3", cross: bool = False,
                  mm_bf16: bool = False):
         super().__init__()
         self.act_func = act_func
@@ -231,7 +231,7 @@ class VecResBlock(nn.Module):
     counts differ) and forward returns (v, s)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 hidden_features: int, act_func, mode: str = "so3",
+                 hidden_features: int, act_func, mode: str = "se3",
                  s_in_features: int = 0, s_out_features: int = 0,
                  s_hidden_features: int = 0, last_activate: bool = True,
                  cross: bool = False):
@@ -307,7 +307,7 @@ class VecMaxPool(nn.Module):
     such index). forward(x, return_weight) returns the pooled (..., C, 3),
     or (pooled, weights or None)."""
 
-    def __init__(self, in_features: int, mode: str = "so3",
+    def __init__(self, in_features: int, mode: str = "se3",
                  softmax_factor: float = -1.0, k_prediction: str = "lin",
                  attention_k_blk: bool = True,
                  softmax_norm_compression: str = "sigmoid",
@@ -365,7 +365,7 @@ class VecMaxPoolV2(nn.Module):
     and channel-wise normalization factors the scale out (no
     safe_divide). Same outputs as VecMaxPool."""
 
-    def __init__(self, in_features: int, mode: str = "so3",
+    def __init__(self, in_features: int, mode: str = "se3",
                  softmax_factor: float = -1.0, attention_k_blk: bool = True):
         super().__init__()
         self.mode, self.softmax_factor = mode, softmax_factor

@@ -61,11 +61,17 @@ class MeshExtractorConfig:
 class MeshExtractor:
     """Meshes from codes through a field `occupancy_logits_fn(query
     (B, M, 3), codes) -> (B, M)` (e.g. model.occupancy_logits); the grids
-    are evaluated on the codes' device."""
+    are evaluated on the codes' device. With `mesh` (a DeviceMesh,
+    parallel/sharding.py) the grid queries are sharded over its
+    `shard_axis`: each rank decodes 1/n of every level's points, and every
+    rank gets the whole grid (a mesh of size 1 runs unsharded)."""
 
     def __init__(self, occupancy_logits_fn: Callable[[torch.Tensor, Codes], torch.Tensor],
-                 config: MeshExtractorConfig = MeshExtractorConfig()):
+                 config: MeshExtractorConfig = MeshExtractorConfig(),
+                 mesh=None, shard_axis: str = "qp"):
         self.config = config
+        self.mesh = mesh
+        self.shard_axis = shard_axis
         self._logits_fn = occupancy_logits_fn
 
     @torch.no_grad()
@@ -91,11 +97,14 @@ class MeshExtractor:
                 select_mode=cfg.select_mode,
                 dedup=cfg.dedup,
                 device=device,
+                mesh=self.mesh,
+                shard_axis=self.shard_axis,
             )
             return values, stats["overflow"]
         values = dense_grid_values(
             decode_one, resolution=cfg.final_resolution, box_size=cfg.box_size,
-            chunk_size=cfg.points_batch_size, device=device)
+            chunk_size=cfg.points_batch_size, device=device, mesh=self.mesh,
+            shard_axis=self.shard_axis)
         return values, torch.zeros((0,), dtype=torch.int32, device=device)
 
     def extract_from_grid(self, value_grid: np.ndarray) -> Mesh:

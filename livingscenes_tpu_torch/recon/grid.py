@@ -1,12 +1,14 @@
 """Occupancy grids of a decoded field: dense, and coarse to fine.
 
 Counterpart of livingscenes_tpu/recon/grid.py (`grid_coordinates`,
-`dense_grid_values`, `hierarchical_grid_values`,
-`batched_hierarchical_grid_values`, `apply_final_merge`), on tensors on one
-device, without the multi-device query sharding. The decoder is the only
-large product: each level decodes its points in chunks of `chunk_size` per
-instance, and the batched function decodes the chunk of all B instances in
-one decoder call (JAX vmaps the one-instance function instead).
+`dense_grid_values`, `sharded_dense_grid_values`, `hierarchical_grid_values`,
+`batched_hierarchical_grid_values`, `apply_final_merge`). The decoder is the
+only large product: each level decodes its points in chunks of `chunk_size`
+per instance, and the batched function decodes the chunk of all B instances
+in one decoder call (JAX vmaps the one-instance function instead). With a
+`mesh` (parallel/sharding.py) the one-instance functions shard the query
+points over its `shard_axis`: each rank decodes its 1/n of every level's
+points and every rank gets the whole grid.
 
 The coarse-to-fine evaluation keeps every shape static, so that nothing is
 read back to the host between levels: each refine level decodes exactly
@@ -27,6 +29,8 @@ import torch
 from torch.profiler import record_function
 
 from ..device import resolve_device
+from ..parallel.sharding import (active_mesh, gather_batch, mesh_size,
+                                 pad_to_multiple, shard_rows)
 
 _SELECT_MODES = ("packsort", "topk")
 _MERGES = ("device", "host")
@@ -52,13 +56,48 @@ def _chunked_eval(decode: Callable[[torch.Tensor], torch.Tensor],
                       for i in range(0, M, chunk_size)], dim=1)
 
 
+def _eval_points(decode: Callable[[torch.Tensor], torch.Tensor], pts: torch.Tensor,
+                 chunk_size: int, mesh=None, axis: str = "qp") -> torch.Tensor:
+    """decode over (B, M, 3) points, query-sharded with a mesh: the points
+    are padded (with zeros) to a multiple of the ranks along `axis`, each
+    rank decodes its 1/n slice in chunks, and the slices are gathered in
+    rank order, so that every rank returns the whole (B, M)."""
+    mesh = active_mesh(mesh, axis)
+    if mesh is None:
+        return _chunked_eval(decode, pts, chunk_size)
+    B, M, _ = pts.shape
+    padded = pad_to_multiple(M, mesh_size(mesh, axis))
+    pts = torch.cat([pts, pts.new_zeros((B, padded - M, 3))], dim=1)
+    local = _chunked_eval(decode, pts[:, shard_rows(padded, mesh, axis)], chunk_size)
+    vals = gather_batch(local.transpose(0, 1).contiguous(), mesh, axis)
+    return vals.transpose(0, 1)[:, :M]
+
+
 def dense_grid_values(decode: Callable[[torch.Tensor], torch.Tensor],
                       resolution: int, box_size: float = 1.1,
                       chunk_size: int = 65536, dtype: torch.dtype = torch.float32,
-                      device=None) -> torch.Tensor:
-    """The dense (res+1)^3 value grid of `decode`: (M, 3) -> (M,)."""
+                      device=None, mesh=None, shard_axis: str = "qp") -> torch.Tensor:
+    """The dense (res+1)^3 value grid of `decode`: (M, 3) -> (M,); with
+    `mesh`, the query points sharded over its `shard_axis`."""
     pts = grid_coordinates(resolution, box_size, dtype, device)
-    vals = _chunked_eval(lambda p: decode(p[0])[None], pts[None], chunk_size)
+    vals = _eval_points(lambda p: decode(p[0])[None], pts[None], chunk_size,
+                        mesh, shard_axis)
+    n = resolution + 1
+    return vals.reshape(n, n, n)
+
+
+def sharded_dense_grid_values(decode: Callable[[torch.Tensor], torch.Tensor],
+                              resolution: int, mesh, box_size: float = 1.1,
+                              axis: str = "qp", dtype: torch.dtype = torch.float32,
+                              device=None) -> torch.Tensor:
+    """The dense (res+1)^3 grid with the query points sharded over `axis`
+    of `mesh`: each rank decodes its 1/n of the padded corner points in one
+    call, and every rank returns the assembled grid (dense_grid_values'
+    values)."""
+    pts = grid_coordinates(resolution, box_size, dtype, device)
+    n_pts = pts.shape[0]
+    chunk = pad_to_multiple(n_pts, mesh_size(mesh, axis))
+    vals = _eval_points(lambda p: decode(p[0])[None], pts[None], chunk, mesh, axis)
     n = resolution + 1
     return vals.reshape(n, n, n)
 
@@ -141,7 +180,7 @@ def _scatter(flat_up: torch.Tensor, idx_sel: torch.Tensor, src) -> torch.Tensor:
 def _hierarchical(decode, B: int, device, resolution0: int, upsampling_steps: int,
                   threshold: float, box_size: float, chunk_size: int,
                   refine_cap_factor: int, dtype, select_mode: str, dedup: bool,
-                  final_merge: str):
+                  final_merge: str, mesh=None, shard_axis: str = "qp"):
     """The coarse-to-fine levels for B instances; decode: (B, M, 3) ->
     (B, M). Returns (values (B, n, n, n), stats) with stats["overflow"] and
     stats["n_active"] (B, steps) int32 and, with the host merge,
@@ -149,7 +188,8 @@ def _hierarchical(decode, B: int, device, resolution0: int, upsampling_steps: in
     with record_function("recon.decode_level0"):
         pts = grid_coordinates(resolution0, box_size, dtype, device)
         n = resolution0 + 1
-        values = _chunked_eval(decode, pts.expand(B, -1, -1), chunk_size)
+        values = _eval_points(decode, pts.expand(B, -1, -1), chunk_size, mesh,
+                              shard_axis)
         values = values.reshape(B, n, n, n)
     res = resolution0
     # dedup: the level-0 corners and every refined point are exact decodes,
@@ -196,7 +236,7 @@ def _hierarchical(decode, B: int, device, resolution0: int, upsampling_steps: in
                 selected, idx_c,
                 big + torch.arange(cap, device=device, dtype=idx_c.dtype))
         with record_function("recon.decode_refine"):
-            vals = _chunked_eval(decode, pts, chunk_size)
+            vals = _eval_points(decode, pts, chunk_size, mesh, shard_axis)
         if final_merge == "host" and last:
             values = v_up
             final_idx, final_vals = idx_sel.to(torch.int32), vals
@@ -245,6 +285,8 @@ def hierarchical_grid_values(
     dedup: bool = True,
     final_merge: str = "device",
     device=None,
+    mesh=None,
+    shard_axis: str = "qp",
 ):
     """Coarse-to-fine value grid of one field, decode: (M, 3) -> (M,).
 
@@ -261,7 +303,9 @@ def hierarchical_grid_values(
     points before it); with `final_merge="host"` (which needs
     `return_stats`) the last level's scatter is left to the caller, and the
     grid is the unmerged upsample with stats["final_idx"] / ["final_vals"]
-    for `apply_final_merge`.
+    for `apply_final_merge`. With `mesh`, every level's points (the dense
+    level 0, then each refine level's `cap` points) are sharded over its
+    `shard_axis`.
     """
     _check_args(select_mode, final_merge, upsampling_steps)
     if final_merge == "host" and not return_stats:
@@ -270,7 +314,7 @@ def hierarchical_grid_values(
     values, stats = _hierarchical(
         lambda p: decode(p[0])[None], 1, resolve_device(device), resolution0,
         upsampling_steps, threshold, box_size, chunk_size, refine_cap_factor,
-        dtype, select_mode, dedup, final_merge)
+        dtype, select_mode, dedup, final_merge, mesh, shard_axis)
     if return_stats:
         return values[0], {k: v[0] for k, v in stats.items()}
     return values[0]

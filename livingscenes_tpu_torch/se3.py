@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .parallel.sharding import batch_draw
+
 
 def identity(batch_size: int, dtype: torch.dtype = torch.float32,
              device=None) -> torch.Tensor:
@@ -314,8 +316,8 @@ def random_rotation(generator: torch.Generator, batch_shape=(),
     """Uniform random rotations (..., 3, 3) from normalised Gaussian
     quaternions drawn from `generator` (on the generator's device, then
     moved to `device`)."""
-    q = torch.randn(tuple(batch_shape) + (4,), generator=generator, dtype=dtype,
-                    device=generator.device)
+    q = batch_draw(torch.randn, tuple(batch_shape) + (4,), generator, dtype=dtype,
+                   device=generator.device)
     q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
     xyzquat = torch.cat([torch.zeros_like(q[..., :3]), q], dim=-1)
     return from_xyzquat(xyzquat)[..., :3, :3].to(device)

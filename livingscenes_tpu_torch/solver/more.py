@@ -50,18 +50,20 @@ class MoreSolver:
     Everything runs on the model's device (the card unless the model was
     built with `device="cpu"`); inputs may be numpy arrays or tensors and
     are moved there. Clouds are padded per-instance batches (B, N, 3) with
-    (B, N) bool validity masks or None. The JAX solver's `mesh` argument
-    (grid queries sharded over several devices) has no counterpart: the
-    port runs on one card.
+    (B, N) bool validity masks or None. With `mesh` (a DeviceMesh with a
+    "qp" axis, parallel/sharding.py) the reconstruction grids' queries are
+    sharded over its ranks, each rank running the solver on the same
+    inputs.
     """
 
-    def __init__(self, model, config: MoreSolverConfig = MoreSolverConfig()):
+    def __init__(self, model, config: MoreSolverConfig = MoreSolverConfig(),
+                 mesh=None):
         self.model = model
         self.cfg = config
         # the restarts' start points, advanced by each draw
         self.generator = torch.Generator().manual_seed(config.seed)
         self.mesh_extractor = MeshExtractor(model.occupancy_logits,
-                                            config.mesh_extractor)
+                                            config.mesh_extractor, mesh=mesh)
 
     # ------------------------------------------------------------------
     def _points(self, pc) -> torch.Tensor:

@@ -4,9 +4,10 @@ canonical-frame occupancy grid of every matched instance), and the host
 meshing of those grids (`extract_scene_meshes`).
 
 Counterpart of livingscenes_tpu/solver/pipeline.py
-(`build_scene_pair_pipeline`, `extract_scene_meshes`), on one device. Scene
-pairs are independent, so every instance of every scene goes through each
-stage in one batch.
+(`build_scene_pair_pipeline`, `extract_scene_meshes`). Scene pairs are
+independent, so every instance of every scene goes through each stage in
+one batch; with a mesh (parallel/sharding.py) each rank runs its share of
+the scenes through the whole program and the outputs are gathered.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from .. import se3
 from ..models.shape_prior import transform_codes
 from ..native.bindings import get_lib
 from ..ops.cuda_fps import fps_auto
+from ..parallel.sharding import active_mesh, gather_batch, shard_batch
 from ..recon.extractor import MeshExtractorConfig, extract_mesh_from_grid
 from ..recon.grid import apply_final_merge, batched_hierarchical_grid_values
 from .matcher import sequential_matcher
@@ -60,7 +62,8 @@ class PipelineConfig:
     recon_bf16: bool = False
 
 
-def build_scene_pair_pipeline(model, cfg: PipelineConfig = PipelineConfig()):
+def build_scene_pair_pipeline(model, cfg: PipelineConfig = PipelineConfig(),
+                              mesh=None, axis: str = "dp"):
     """Return `pipeline(ref_pc, rescan_pc[, ref_mask, rescan_mask]) -> dict`
     running on the model's device, with
 
@@ -83,7 +86,15 @@ def build_scene_pair_pipeline(model, cfg: PipelineConfig = PipelineConfig()):
     (S, O, N) and N may exceed the encoder's input size. Inputs may be
     numpy arrays or tensors; they are moved to the model's device. Nothing
     is read back to the host.
+
+    With `mesh` (a DeviceMesh, parallel/sharding.py) every rank passes the
+    same inputs; S must be divisible by the ranks along `axis`, each rank
+    runs its S/n scenes through the whole program, and every output is
+    gathered on the scene axis, so that every rank returns the whole dict.
+    The model's weights must be the same on every rank (replicate(model,
+    mesh) once, or load one checkpoint); a mesh of size 1 runs unsharded.
     """
+    mesh = active_mesh(mesh, axis)
     # with no refine level there is no final scatter to defer
     final_merge = ("device" if cfg.recon_upsampling_steps == 0
                    else cfg.recon_final_merge)
@@ -94,6 +105,13 @@ def build_scene_pair_pipeline(model, cfg: PipelineConfig = PipelineConfig()):
 
     @grad_mode()
     def pipeline(ref_pc, rescan_pc, ref_mask=None, rescan_mask=None):
+        if mesh is None:
+            return local(ref_pc, rescan_pc, ref_mask, rescan_mask)
+        shards = [None if x is None else shard_batch(x, mesh, axis)
+                  for x in (ref_pc, rescan_pc, ref_mask, rescan_mask)]
+        return gather_batch(local(*shards), mesh, axis)
+
+    def local(ref_pc, rescan_pc, ref_mask, rescan_mask):
         dev, dtype = model.device, model.dtype
         ref_pc = torch.as_tensor(ref_pc, device=dev, dtype=dtype)
         rescan_pc = torch.as_tensor(rescan_pc, device=dev, dtype=dtype)

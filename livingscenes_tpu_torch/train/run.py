@@ -1,11 +1,15 @@
 """Training entry point: config -> datasets -> model -> trainer.run().
 
-Counterpart of livingscenes_tpu/train/run.py on one device (the card unless
---device names another). Usage:
+Counterpart of livingscenes_tpu/train/run.py (the card unless --device
+names another). Usage:
 
     python -m livingscenes_tpu_torch.train.run --config configs/production_r5.yaml \\
         [--override training.batch_size=32] [--resume latest | <step>] \\
         [--init-from CKPT] [--total-iter N] [--device cpu]
+
+Data-parallel over N ranks (one per card; batch_size must divide by N):
+
+    torchrun --nproc-per-node N -m livingscenes_tpu_torch.train.run --config ...
 
 --init-from restores the parameters only (fresh Adam state, step 0, so the
 schedule restarts) from a flax checkpoint of the JAX package (its `params`
@@ -13,8 +17,11 @@ tree; `opt_state` is ignored) or from a checkpoint of this trainer.
 The datasets are the synthetic one (`dataset_name: synthetic`) and the
 preprocessed ShapeNet layout (`shapenet_new2` or `shapenet`: `data_root`,
 `shapenet_split_fn`, `categories`, `input_mode`, ...; make a tree with
-`python -m livingscenes_tpu_torch.tools.preprocess`). Data parallelism is
-not ported.
+`python -m livingscenes_tpu_torch.tools.preprocess`). Under torchrun with
+WORLD_SIZE > 1 every rank joins the process group (nccl on the cards, gloo
+with --device cpu), the trainer gets a ("dp",) mesh, every rank reads the
+same seeded batch stream and keeps its rows, and only rank 0 writes the log
+directory.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch
 from ..models.convert import load_flax_checkpoint, params_from_jax
 from ..models.shape_prior import ShapePriorConfig
 from ..models.sim3recon import SIM3Recon, TrainLossConfig
+from ..parallel.sharding import initialize_distributed, make_mesh
 from .config import (apply_overrides, cfg_with_default, load_config,
                      prepare_log_dir)
 from .data import (AugmentConfig, SamplingAugConfig, ShapeNetSDFDataset,
@@ -188,14 +196,25 @@ def main(argv=None):
 
     cfg = load_config(args.config)
     apply_overrides(cfg, args.override)
-    if args.resume is None:
+    trainer_cfg = build_trainer_cfg(cfg)
+    mesh = None
+    if initialize_distributed(device=args.device):
+        world = torch.distributed.get_world_size()
+        if trainer_cfg.batch_size % world:
+            raise ValueError(f"batch_size {trainer_cfg.batch_size} does not "
+                             f"divide over {world} ranks")
+        mesh = make_mesh(axis_names=("dp",))
+    main_rank = mesh is None or torch.distributed.get_rank() == 0
+    if args.resume is None and main_rank:
         prepare_log_dir(cfg, args.config)
-    configure_logging(cfg_with_default(cfg, ["logging", "log_dir"], None))
+    configure_logging(cfg_with_default(cfg, ["logging", "log_dir"], None)
+                      if main_rank else None)
+    if mesh is not None:
+        log.info("data-parallel mesh over %d ranks", mesh.size())
 
     model = build_model(cfg, device=args.device)
     train_ds, val_ds = build_datasets(cfg)
-    trainer_cfg = build_trainer_cfg(cfg)
-    trainer = Trainer(model, trainer_cfg)
+    trainer = Trainer(model, trainer_cfg, mesh=mesh)
     state = trainer.init_state()
     if args.resume:
         state = trainer.load_checkpoint(state, args.resume)

@@ -1,6 +1,6 @@
 """Iteration-oriented trainer.
 
-Counterpart of livingscenes_tpu/train/trainer.py, on one device:
+Counterpart of livingscenes_tpu/train/trainer.py:
 
 * a total_iter budget with eval_every_iter / checkpoint_iter / log_every,
 * the learning rate of optax's piecewise_constant_schedule (the factor of a
@@ -25,10 +25,21 @@ Counterpart of livingscenes_tpu/train/trainer.py, on one device:
   non-finite on the batch (forward hooks, utils/debugging.py) and the
   model's parameters that hold a NaN or Inf.
 
-A step draws its randomness (the centre jitter, the dropout masks) from a
-generator seeded from (seed, step), as JAX's fold_in(PRNGKey(seed), step):
-a resumed run draws what the uninterrupted one does. A step reads nothing
-back to the host unless it is a log step or `anomaly` is set.
+A step draws its randomness (the rotations of rot_aug, the centre jitter,
+the dropout masks) from a generator seeded from (seed, step), as JAX's
+fold_in(PRNGKey(seed), step): a resumed run draws what the uninterrupted
+one does. A step reads nothing back to the host unless it is a log step or
+`anomaly` is set.
+
+With a mesh (a DeviceMesh with a "dp" axis, parallel/sharding.py) the step
+is data-parallel and equals the unsharded step, as JAX's SPMD step does:
+every rank reads the same global batch and keeps its rows (`place_batch`),
+the random draws are made for the global batch and each rank keeps its
+rows (RowDraws), the loss clamp is decided on the mean loss over the ranks,
+the gradients are averaged over the ranks in one flattened all_reduce
+before the clipping, and the metrics are means over the ranks. The weights
+start from rank 0's (`init_state`); only rank 0 writes checkpoints, logs
+and visualizations.
 """
 from __future__ import annotations
 
@@ -43,6 +54,8 @@ import numpy as np
 import torch
 
 from ..models.sim3recon import SIM3Recon
+from ..parallel.sharding import (RowDraws, active_mesh, all_reduce_mean, replicate,
+                                 shard_batch, shard_rows)
 from .logger import TrainLogger
 
 log = logging.getLogger(__name__)
@@ -109,12 +122,22 @@ class TrainState:
         self.step = step
 
 
+class _NoLogger:
+    """The logger of a rank other than 0: writes nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
 class Trainer:
-    def __init__(self, model: SIM3Recon, cfg: TrainerConfig = TrainerConfig()):
+    def __init__(self, model: SIM3Recon, cfg: TrainerConfig = TrainerConfig(),
+                 mesh=None):
         self.model = model
         self.cfg = cfg
+        self.mesh = active_mesh(mesh, "dp")
+        self.is_main = self.mesh is None or self.mesh.get_local_rank("dp") == 0
         self.schedule = make_lr_schedule(cfg)
-        self.logger = TrainLogger(cfg.log_dir)
+        self.logger = TrainLogger(cfg.log_dir) if self.is_main else _NoLogger()
         prior = model.prior
         # the top-level components, each clipped on its own
         self.components = {"encoder": list(prior.encoder.parameters()),
@@ -132,38 +155,66 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
-        """A fresh Adam state at step 0 (the parameters are the model's)."""
+        """A fresh Adam state at step 0 (the parameters are the model's;
+        with a mesh, rank 0's are broadcast)."""
+        replicate(self.model.prior, self.mesh)
         zeros = lambda: [torch.zeros_like(p) for p in self.params]
         return TrainState({"mu": zeros(), "nu": zeros(), "count": 0}, 0)
 
     def place_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a global batch of numpy arrays (all of them
+        without a mesh), on the model's device."""
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh)
+        return self._to_device(batch)
+
+    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         dtype = self.model.prior.dtype
         return {k: torch.as_tensor(np.asarray(v), device=self.device).to(dtype)
                 for k, v in batch.items()}
+
+    def step_generator(self, step: int, batch_size: int):
+        """The generator of step `step` for a global batch of `batch_size`
+        rows: with a mesh, a RowDraws that keeps this rank's rows of each
+        draw."""
+        generator = self.generator(step)
+        if self.mesh is None:
+            return generator
+        return RowDraws(generator, shard_rows(batch_size, self.mesh), batch_size)
+
+    def _global_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each metric's mean over the ranks."""
+        return dict(zip(metrics, all_reduce_mean(list(metrics.values()), self.mesh)))
 
     def generator(self, step: int) -> torch.Generator:
         """The generator of step `step`, on the model's device."""
         return torch.Generator(device=self.device).manual_seed(
             step_seed(self.cfg.seed, step))
 
-    def forward(self, batch: Dict[str, torch.Tensor],
-                generator: Optional[torch.Generator]):
-        """The forward of one step: (objective, metrics); the objective is
-        the loss clamped to loss_clip."""
+    def forward(self, batch: Dict[str, torch.Tensor], generator):
+        """The forward of one step: (objective, metrics). The objective is
+        the loss clamped to loss_clip, whose gradient is 0 once the loss
+        saturates; with a mesh, once the mean loss over the ranks does, and
+        the metrics are means over the ranks."""
         loss, metrics = self.model.loss(batch, generator, train=True)
+        metrics = self._global_metrics({k: v.detach() for k, v in metrics.items()})
         c = self.cfg.loss_clip
-        objective = torch.clamp(loss, -c, c) if c > 0 else loss
-        return objective, {k: v.detach() for k, v in metrics.items()}
+        if c <= 0:
+            return loss, metrics
+        mean = metrics["batch_loss"]
+        objective = torch.where((mean >= -c) & (mean <= c), loss,
+                                torch.clamp(loss.detach(), -c, c))
+        return objective, metrics
 
-    def loss_and_grads(self, batch: Dict[str, torch.Tensor],
-                       generator: Optional[torch.Generator]):
+    def loss_and_grads(self, batch: Dict[str, torch.Tensor], generator):
         """The forward and backward of one step: (metrics, grads), the
         gradients of the clamped loss in the order of self.params (zeros for
         a parameter the loss does not reach, such as the class head's on a
-        batch without labels)."""
+        batch without labels); with a mesh, averaged over the ranks."""
         objective, metrics = self.forward(batch, generator)
-        return metrics, list(torch.autograd.grad(
+        grads = list(torch.autograd.grad(
             objective, self.params, allow_unused=True, materialize_grads=True))
+        return metrics, all_reduce_mean(grads, self.mesh)
 
     @torch.no_grad()
     def apply_gradients(self, state: TrainState, grads: List[torch.Tensor]):
@@ -205,7 +256,8 @@ class Trainer:
         loss or gradient norm raises before the update (see
         anomaly_report)."""
         placed = self.place_batch(batch)
-        metrics, grads = self.loss_and_grads(placed, self.generator(state.step))
+        generator = self.step_generator(state.step, len(batch["inputs"]))
+        metrics, grads = self.loss_and_grads(placed, generator)
         if self.cfg.anomaly:
             norm = torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads))
             bad = [k for k, v in (("batch_loss", metrics["batch_loss"]),
@@ -244,7 +296,7 @@ class Trainer:
         _, metrics = self.model.loss(batch, None, train=False)
         if "eval_points" in batch:
             metrics["iou"] = torch.mean(self.model.val_iou(batch))
-        return metrics
+        return self._global_metrics(metrics)
 
     # ------------------------------------------------------------------
     def run(self, state: TrainState, train_iter: Iterator[Dict[str, np.ndarray]],
@@ -279,7 +331,7 @@ class Trainer:
                     self.logger.log_metrics("val", step, mean)
                     self._maybe_select(state, mean)
             if (cfg.viz_iter_interval > 0 and step % cfg.viz_iter_interval == 0
-                    and val_iter_factory is not None):
+                    and val_iter_factory is not None and self.is_main):
                 try:
                     self.visualize_sample(state, next(val_iter_factory()), step)
                 except Exception:  # visualization never stops training
@@ -316,7 +368,7 @@ class Trainer:
         from ..utils.viz import render_mesh_image, render_pointcloud_image, write_png
 
         prior = self.model.prior
-        inputs = self.place_batch({"inputs": batch["inputs"][:1]})["inputs"]
+        inputs = self._to_device({"inputs": batch["inputs"][:1]})["inputs"]
         was_training = prior.training
         prior.eval()
         try:
@@ -353,6 +405,9 @@ class Trainer:
         return d
 
     def save_checkpoint(self, state: TrainState, tag: str):
+        """Write <tag>.ckpt (rank 0 only)."""
+        if not self.is_main:
+            return
         opt = state.opt_state
         payload = {
             "params": {k: v.detach().cpu() for k, v in
@@ -382,7 +437,7 @@ class Trainer:
         """Save selected.ckpt when the validation metric beats the best
         so far (selected.metric)."""
         key = self.cfg.select_metric
-        if key not in val_metrics:
+        if key not in val_metrics or not self.is_main:
             return
         value = val_metrics[key]
         best_path = os.path.join(self._ckpt_dir(), "selected.metric")

@@ -44,17 +44,17 @@ def port_like(jmod, tmod, x):
 
 
 CASES = [
-    ("linear", lambda: (jvl.VecLinear(16, 8, mode="so3"), vl.VecLinear(16, 8))),
+    ("linear", lambda: (jvl.VecLinear(16, 8, mode="so3"), vl.VecLinear(16, 8, mode="so3"))),
     ("activation", lambda: (jvl.VecActivation(16, ACT_J, mode="so3"),
-                            vl.VecActivation(16, ACT_T))),
-    ("lna", lambda: (jvl.VecLNA(16, 8, ACT_J, mode="so3"), vl.VecLNA(16, 8, ACT_T))),
+                            vl.VecActivation(16, ACT_T, mode="so3"))),
+    ("lna", lambda: (jvl.VecLNA(16, 8, ACT_J, mode="so3"), vl.VecLNA(16, 8, ACT_T, mode="so3"))),
     ("lna_shared", lambda: (
         jvl.VecLNA(16, 8, ACT_J, mode="so3", shared_nonlinearity=True),
-        vl.VecLNA(16, 8, ACT_T, shared_nonlinearity=True))),
+        vl.VecLNA(16, 8, ACT_T, mode="so3", shared_nonlinearity=True))),
     ("resblock", lambda: (jvl.VecResBlock(16, 1, 8, ACT_J, mode="so3"),
-                          vl.VecResBlock(16, 1, 8, ACT_T))),
+                          vl.VecResBlock(16, 1, 8, ACT_T, mode="so3"))),
     ("resblock_same", lambda: (jvl.VecResBlock(16, 16, 8, ACT_J, mode="so3"),
-                               vl.VecResBlock(16, 16, 8, ACT_T))),
+                               vl.VecResBlock(16, 16, 8, ACT_T, mode="so3"))),
 ]
 
 
@@ -95,7 +95,7 @@ def test_fused_edge_kv_matches_jax(rng):
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-10, atol=1e-10)
     # equals the unfused VecLNA on the materialized [nn - dst, dst] edge
-    lna = vl.VecLNA(2 * C, O, ACT_T).double()
+    lna = vl.VecLNA(2 * C, O, ACT_T, mode="so3").double()
     with torch.no_grad():
         lna.lin.weight.copy_(torch.from_numpy(W_K))
         lna.act.lin_dir.weight.copy_(torch.from_numpy(D_K))

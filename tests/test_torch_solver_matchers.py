@@ -220,7 +220,7 @@ def test_port_imports_nothing_of_jax():
                  "eval.mesh_eval", "eval.flyingshape", "eval.rescan3r",
                  "eval.run_flyingshape", "eval.run_3rscan", "recon.render",
                  "tools", "tools.preprocess", "utils.binvox", "utils.viz",
-                 "utils.debugging"):
+                 "utils.debugging", "parallel", "parallel.sharding"):
         assert f"livingscenes_tpu_torch.{name}" in modules, name
     code = ("import sys\n"
             f"for name in {sorted(banned)!r}:\n"

@@ -174,7 +174,7 @@ def test_hard_pool_takes_the_first_maximum():
     x = vec_input(5, (1, 6, 4, 3))
     x[0, 1] *= 10.0
     x[0, 4] = x[0, 1]
-    pool = vl.VecMaxPool(4, softmax_factor=-1.0).double()
+    pool = vl.VecMaxPool(4, mode="so3", softmax_factor=-1.0).double()
     with torch.no_grad():
         pool.lin_dir.weight.copy_(torch.eye(4, dtype=torch.float64))
         out = pool(torch.from_numpy(x))
@@ -191,7 +191,7 @@ def test_mm_bf16_matches_jax_to_a_few_ulps():
     params = jax.tree.map(lambda a: np.asarray(a, np.float32),
                           jmod.init(jax.random.PRNGKey(0), x)["params"])
     want = np.asarray(jmod.apply({"params": params}, x))
-    tmod = port(vl.VecLinear(64, 48, mm_bf16=True), params, torch.float32)
+    tmod = port(vl.VecLinear(64, 48, mode="so3", mm_bf16=True), params, torch.float32)
     xt = torch.from_numpy(x)
     with torch.no_grad():
         got = tmod(xt).numpy()
@@ -204,7 +204,7 @@ def test_mm_bf16_matches_jax_to_a_few_ulps():
     assert np.all(np.abs(got - exact) <= bound)
     assert np.max(np.abs(plain - want) / bound) > 10.0
     # float64 takes no bfloat16, as JAX's condition on float32 inputs
-    t64 = port(vl.VecLinear(64, 48, mm_bf16=True), jax_init(jmod, x))
+    t64 = port(vl.VecLinear(64, 48, mode="so3", mm_bf16=True), jax_init(jmod, x))
     with torch.no_grad():
         np.testing.assert_array_equal(
             t64(xt.double()).numpy(),
@@ -224,7 +224,7 @@ def test_edge_vec_lna_matches_jax():
         got = tmod(torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(idx))
         assert_same(want, got)
         # the naive VecLNA on the built edges, from the same parameters
-        naive = port(vl.VecLNA(2 * Cc, O, ACT_T), params)
+        naive = port(vl.VecLNA(2 * Cc, O, ACT_T, mode="so3"), params)
         nn_f = torch.from_numpy(src)[torch.arange(Bn)[:, None, None], torch.from_numpy(idx).long()]
         d = torch.from_numpy(dst)[:, :, None].expand_as(nn_f)
         np.testing.assert_allclose(naive(torch.cat([nn_f - d, d], -2)).numpy(),
