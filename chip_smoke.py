@@ -26,8 +26,9 @@
    Every kernel is also checked, untimed, at small ragged shapes (K < 16,
    partial tiles, repeated sources, exact ties; kNN at each query tile, FPS
    in each form, from a start index, stacked, and past its registers at
-   12288 points; the kNN + scale and scale kernels past one column chunk
-   and past 4096 points).
+   12288 points, and through ops/fps.py fps_subsample_with_features; the
+   kNN + scale and scale kernels past one column chunk and past 4096
+   points).
 4. Runs the fused-encoder pipeline (ShapePriorConfig(pallas_attention=True):
    FPS -> kNN+scale -> fused encoder -> match -> Kabsch -> ICP) at full
    width with the trained checkpoint weights/production_r5_selected.ckpt
@@ -90,7 +91,10 @@
    Sinkhorn launches) and at 10 steps against the CPU; meshes, 200 steps
    of optimize_code, and 20 against the CPU, on procedural shapes; the
    joint optimisation of 3 scans (FPS at 12288 points). Its bounds are
-   in its docstring.
+   in its docstring. Then the port's end-to-end demo (phase_demo,
+   scripts/torch_demo_end2end.py at its defaults: 4 boxes x 1024 points,
+   129^3 meshes), with and without --optim, held to a CPU solve, its
+   artifacts checked.
 8. The training path (kernel rows 12-14, the backward kernels of layer 0,
    the mean edge layer and vector attention). Each backward kernel is held
    against the plain VJP (autograd of its plain forward, in f64) on the
@@ -454,7 +458,46 @@ def phase_fps(torch, report):
             f"ns a round (the wrapper {wrapper:.4f} ms), plain {plain:.3f} ms, "
             f"bound {bms:.4f} ms ({by})")
     report["fps"] = {"shapes": rows, **total, "max_abs_err": 0.0,
-                     "library_ms": None, "bound_by": "operations"}
+                     "library_ms": None, "bound_by": "operations",
+                     "subsample_with_features": fps_subsample_check(torch, rng)}
+
+
+def fps_subsample_check(torch, rng):
+    """ops/fps.py fps_subsample_with_features at the encoder's first
+    down-sampling (B x 1024 points, factor 2, features B x 1024 x 32 x 3):
+    one FPS launch and no other by the counters; the indices those of the plain
+    version, or each cloud's first difference a near-tie by
+    fps_tie_witness; the points and features the gathers at the card's
+    indices, bit for bit."""
+    from livingscenes_tpu_torch.ops.fps import (
+        farthest_point_sampling, fps_subsample_with_features)
+
+    pts = torch.as_tensor(rng.uniform(-1, 1, (B, N_PCL, 3)).astype(np.float32),
+                          device="cuda")
+    feats = torch.as_tensor(rng.normal(size=(B, N_PCL, 32, 3)).astype(np.float32),
+                            device="cuda")
+    (sampled, got, idx), launches = counted(
+        lambda: fps_subsample_with_features(pts, feats, 2))
+    launches = {k: v for k, v in launches.items() if v}
+    if launches != {"fps": 1}:
+        raise AssertionError(f"fps_subsample_with_features: launches {launches}")
+    want = farthest_point_sampling(pts, N_PCL // 2)[1]
+    witnessed = []
+    for b in torch.nonzero((idx != want).any(dim=1)).flatten().tolist():
+        w = fps_tie_witness(torch, (idx, (pts,)), (want, (pts,)), b)
+        log_witness(f"fps_subsample_with_features cloud {b}", "FPS", w)
+        if not w["near_tie"]:
+            raise AssertionError(f"fps_subsample_with_features: cloud {b} picks "
+                                 "differ from the plain version's with no near-tie")
+        witnessed.append(b)
+    rows = torch.arange(B, device="cuda")[:, None]
+    if not (torch.equal(sampled, pts[rows, idx]) and torch.equal(got, feats[rows, idx])):
+        raise AssertionError("fps_subsample_with_features: the gathers differ")
+    log(f"fps_subsample_with_features {B}x{N_PCL} -> {N_PCL // 2}, features 32x3: "
+        f"1 FPS launch; indices equal to the plain version's"
+        + (f" but for witnessed near-ties in clouds {witnessed}" if witnessed else "")
+        + "; gathers equal")
+    return {"launches": launches, "witnessed_clouds": witnessed}
 
 
 def check_graph(torch, name, q, p, ik, ip):
@@ -2202,7 +2245,7 @@ def phase_recon(torch, report, state, want: dict):
 
 class record_graphs:
     """While active, the kNN graphs and FPS picks the encoder builds
-    (vec_dgcnn_attn's knn_auto and fps_auto, the ablation encoders'
+    (vec_dgcnn_attn's knn_auto and fps_subsample_with_features, the ablation encoders'
     knn_auto, and the fused front end's layer-0 graph, shape_prior's
     knn_with_topk_scale) are kept on the host
     in call order, as ("knn", layer, idx (B, Nd, K)) and ("fps", layer, idx
@@ -2223,7 +2266,8 @@ class record_graphs:
         from livingscenes_tpu_torch.nn import encoders
         from livingscenes_tpu_torch.nn import vec_dgcnn_attn as vda
 
-        self.vda, self.saved, self.calls = vda, (vda.knn_auto, vda.fps_auto), []
+        self.vda, self.calls = vda, []
+        self.saved = (vda.knn_auto, vda.fps_subsample_with_features)
         self.encoders = encoders
         self.sp, self.front = sp, sp.knn_with_topk_scale
         knn_real, fps_real = self.saved
@@ -2244,19 +2288,19 @@ class record_graphs:
             self.kept(q, p)
             return out
 
-        def fps(x, n):
-            out = fps_real(x, n)
+        def fps(x, features, factor):
+            out = fps_real(x, features, factor)
             layer = sum(c[0] == "knn" for c in self.calls)
-            self.calls.append(("fps", layer, out[1].long().cpu()))
+            self.calls.append(("fps", layer, out[2].long().cpu()))
             self.kept(x)
             return out
 
-        vda.knn_auto, vda.fps_auto = knn, fps
+        vda.knn_auto, vda.fps_subsample_with_features = knn, fps
         encoders.knn_auto = knn
         return self
 
     def __exit__(self, *exc):
-        self.vda.knn_auto, self.vda.fps_auto = self.saved
+        self.vda.knn_auto, self.vda.fps_subsample_with_features = self.saved
         self.encoders.knn_auto = self.saved[0]
         self.sp.knn_with_topk_scale = self.front
 
@@ -3462,13 +3506,162 @@ def phase_more(torch, report, state, scenes, profile: bool):
     report["more"] = result
 
 
-def load_capstone_script():
-    """scripts/torch_demo_trained_eval.py as a module (build_benchmark,
-    capstone_solver)."""
+# A registered reference box's chamfer to its rescan, of the rescan's mean
+# nearest-neighbour spacing, at most: registered as the CPU registers it
+# (the exact pose gives about 1e-4; a turn of 0.5 degree about the box's
+# centre 0.065-0.080), and on another of the box's half turns than the
+# CPU's (0.95-1.07: the points lie between the rescan's samples). phase_demo
+# logs both readings for the demo's boxes.
+DEMO_CHAMFER = 0.05
+DEMO_CHAMFER_TURN = 1.2
+# A box's symmetries that keep its surface in place: the identity, then the
+# half turns about its three axes through its centre.
+BOX_TURNS = [np.eye(3)] + [np.diag(d) for d in ((1.0, -1.0, -1.0), (-1.0, 1.0, -1.0),
+                                                (-1.0, -1.0, 1.0))]
+
+
+def box_turn(tsfm, cpu_tsfm, box):
+    """Which of BOX_TURNS, composed with the CPU's registration `cpu_tsfm`
+    of the (N, 3) reference `box` (an axis-aligned box), gives the card's
+    `tsfm` within the tolerance that tests/test_torch_port_pipeline.py holds
+    a registration to after ICP (rotation 0.5 degree, translation 1e-2):
+    its index, 0 for the CPU's pose itself, or None."""
+    R, t, Rc, tc = tsfm[:3, :3], tsfm[:3, 3], cpu_tsfm[:3, :3], cpu_tsfm[:3, 3]
+    c = 0.5 * (box.min(0) + box.max(0))
+    for k, H in enumerate(BOX_TURNS):
+        cos = 0.5 * (np.trace((Rc @ H).T @ R) - 1.0)
+        if np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))) < 0.5 and \
+                np.abs(t - (tc + Rc @ (c - H @ c))).max() < 1e-2:
+            return k
+    return None
+
+
+def cloud_chamfer(torch, a, b) -> float:
+    """Symmetric chamfer of two (N, 3) clouds in f64 on the host: the mean
+    nearest-neighbour distance of each to the other, averaged."""
+    d = torch.cdist(torch.as_tensor(a, dtype=torch.float64),
+                    torch.as_tensor(b, dtype=torch.float64))
+    return 0.5 * float(d.min(1).values.mean() + d.min(0).values.mean())
+
+
+def phase_demo(torch, report):
+    """The port's end-to-end demo, scripts/torch_demo_end2end.py main, at
+    its defaults on the card (4 boxes x 1024 points, the fused encoder,
+    129^3 grids and meshes) with the r5 checkpoint, into a temporary
+    directory: once as is and once with --optim. Checks, with the bounds
+    fixed before the first run on the card:
+
+    - launch counts: more_want(1), and with --optim 801 Sinkhorn forwards
+      and 800 backwards more; no plain version ran;
+    - matches0 equal to the same solve on the CPU (device="cpu",
+      extract_meshes=False), and every box matched to its own rescan;
+    - each box's registration the CPU's within 0.5 degree and 1e-2, or the
+      CPU's composed with one of the box's half turns about its centre
+      (box_turn): the two solves sum in other orders, and a box's half turns
+      leave it where it was;
+    - each reference box moved by its registration lies on its rescan: their
+      chamfer at most DEMO_CHAMFER times the rescan's mean nearest-neighbour
+      spacing, or DEMO_CHAMFER_TURN for a box on another half turn than the
+      CPU's;
+    - matching.png, registration.png and a non-empty recon_<i>.obj for each
+      matched box were written.
+    The match count and each box's RRE and RTE are logged as the JAX demo
+    prints them."""
+    import tempfile
+
+    demo = load_script("torch_demo_end2end")
+    from livingscenes_tpu_torch.eval.run_flyingshape import load_solver
+
+    tag = "demo"
+    phase_t0 = time.perf_counter()
+    objs, rescan, _, _, perm = demo.make_scene()
+    t0 = time.perf_counter()
+    cpu = demo.solve(load_solver(CKPT, device="cpu"), objs, rescan, extract_meshes=False)
+    result = {"cpu_ms": (time.perf_counter() - t0) * 1e3,
+              "cpu_matches0": cpu["matches0"].tolist()}
+    spacing = []
+    for r in rescan:
+        d = torch.cdist(torch.as_tensor(r, dtype=torch.float64),
+                        torch.as_tensor(r, dtype=torch.float64))
+        d.fill_diagonal_(float("inf"))
+        spacing.append(float(d.min(1).values.mean()))
+    # what the bounds stand against: each box against itself turned about
+    # its centre by a half turn and by 0.5 degree, of its spacing
+    cos, sin = np.cos(np.radians(0.5)), np.sin(np.radians(0.5))
+    tilt = np.array([[cos, -sin, 0.0], [sin, cos, 0.0], [0.0, 0.0, 1.0]])
+    readings = {"half_turn": [], "half_degree": []}
+    for i, j in enumerate(perm.argsort()):
+        box = objs[i].astype(np.float64)
+        mid = 0.5 * (box.min(0) + box.max(0))
+        for key, turns in (("half_turn", BOX_TURNS[1:]), ("half_degree", [tilt])):
+            readings[key] += [cloud_chamfer(torch, (box - mid) @ H.T + mid, box)
+                              / spacing[j] for H in turns]
+    result["chamfer_of"] = {k: [min(v), max(v)] for k, v in readings.items()}
+    log(f"{tag}: chamfer / spacing of a box against itself turned about its "
+        f"centre: half turns {min(readings['half_turn']):.3f}-"
+        f"{max(readings['half_turn']):.3f}, 0.5 degree "
+        f"{min(readings['half_degree']):.3f}-{max(readings['half_degree']):.3f} "
+        f"(bounds {DEMO_CHAMFER_TURN}, {DEMO_CHAMFER})")
+    for optim in (False, True):
+        name = "optim" if optim else "plain"
+        with tempfile.TemporaryDirectory() as out_dir:
+            argv = ["--out", out_dir, "--ckpt", CKPT] + (["--optim"] if optim else [])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with forbid_plain():
+                run, launches = counted(lambda: demo.main(argv))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            want = more_want(1)
+            if optim:
+                want.update(sinkhorn=2 * REFINE_STEPS + 1, sinkhorn_bwd=2 * REFINE_STEPS)
+            check_launches(f"{tag} ({name})", launches, want)
+            out = run["solution"]
+            m0 = out["matches0"].tolist()
+            if m0 != result["cpu_matches0"] or not all(run["correct"]):
+                raise AssertionError(f"{tag} ({name}): matches0 {m0}, the CPU's "
+                                     f"{result['cpu_matches0']}, correct {run['correct']}")
+            tsfm = out["registration"].cpu().double().numpy()
+            cpu_tsfm = cpu["registration"].cpu().double().numpy()
+            chamfers, turns = [], []
+            for i, j in enumerate(m0):
+                box = objs[i].astype(np.float64)
+                turns.append(box_turn(tsfm[i], cpu_tsfm[i], box))
+                moved = box @ tsfm[i, :3, :3].T + tsfm[i, :3, 3]
+                chamfers.append(cloud_chamfer(torch, moved, rescan[j]) / spacing[j])
+            if None in turns:
+                raise AssertionError(f"{tag} ({name}): registrations {turns} (None: "
+                                     "neither the CPU's nor a half turn of it)")
+            bounds = [DEMO_CHAMFER if k == 0 else DEMO_CHAMFER_TURN for k in turns]
+            if any(c > b for c, b in zip(chamfers, bounds)):
+                raise AssertionError(f"{tag} ({name}): registered boxes off their "
+                                     f"rescans, chamfer / spacing {chamfers}, bounds "
+                                     f"{bounds}")
+            names = sorted(os.path.basename(p) for p in run["paths"])
+            objs_written = [f"recon_{i}.obj" for i in range(len(m0))]
+            if names != sorted(["matching.png", "registration.png"] + objs_written) or \
+                    min(os.path.getsize(p) for p in run["paths"]) == 0:
+                raise AssertionError(f"{tag} ({name}): artifacts {names}")
+        log(f"{tag} ({name}): matching: {sum(run['correct'])}/{len(m0)} correct -> "
+            f"{m0} (the CPU's equal); "
+            + "; ".join(f"object {i}: RRE {run['rre'][i]:.3f} deg  RTE "
+                        f"{run['rte'][i]:.4f} m" for i in range(len(m0)))
+            + f"; half turns from the CPU's registrations {turns} (0: none); chamfer "
+            f"/ spacing {max(chamfers):.3g} at most; {len(names)} artifacts; {ms:.0f} ms")
+        result[name] = {"ms": ms, "launches": launches, "matches0": m0,
+                        "rre": run["rre"], "rte": run["rte"], "half_turns": turns,
+                        "chamfer_over_spacing": chamfers, "artifacts": names}
+    result["phase_s"] = time.perf_counter() - phase_t0
+    log(f"{tag}: the CPU's solve {result['cpu_ms']:.0f} ms; phase {result['phase_s']:.1f} s")
+    report["demo"] = result
+
+
+def load_script(name):
+    """scripts/<name>.py as a module."""
     import importlib.util
 
-    path = os.path.join(ROOT, "scripts", "torch_demo_trained_eval.py")
-    spec = importlib.util.spec_from_file_location("torch_demo_trained_eval", path)
+    path = os.path.join(ROOT, "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -3620,7 +3813,7 @@ def phase_eval(torch, report):
         rec96 = json.load(f)
     with open(EVAL_RECORDS[48]) as f:
         rec48 = json.load(f)
-    capstone = load_capstone_script()
+    capstone = load_script("torch_demo_trained_eval")
     card = card_line()
     root = tempfile.mkdtemp(prefix="lstpu_eval_")
     times, launches, failures = {}, {}, []
@@ -5624,6 +5817,7 @@ def main() -> int:
     phase_scale(torch, report, state, pc[:, :N_RAGGED].contiguous())
     phase_optim(torch, report, state, args.profile)
     phase_more(torch, report, state, scenes, args.profile)
+    phase_demo(torch, report)
     phase_eval(torch, report)
     phase_training(torch, report, args.profile)
     phase_shapenet(torch, report)

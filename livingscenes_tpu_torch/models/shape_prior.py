@@ -377,6 +377,12 @@ def slice_codes(codes: Codes, index) -> Codes:
     return {k: v[index] for k, v in codes.items()}
 
 
+def concat_codes(code_list) -> Codes:
+    """Codes of several batches joined along the batch axis, entry by
+    entry: the inverse of slice_codes."""
+    return {k: torch.cat([codes[k] for codes in code_list]) for k in code_list[0]}
+
+
 def transform_codes(codes: Codes, tsfm: torch.Tensor) -> Codes:
     """Carry codes through (B, 3/4, 4) transforms: z_so3 -> z_so3 R^T,
     t -> t R^T + p; z_inv and s are invariant."""

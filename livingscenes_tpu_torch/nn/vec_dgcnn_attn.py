@@ -16,7 +16,8 @@ Counterpart of livingscenes_tpu/nn/vec_dgcnn_attn.py (`VecDGCNNAttn`):
 
 Every layer builds a kNN graph in feature space (ops/cuda_knn.py: the
 kernel on the card, its plain version on the CPU) and layers 2, 4 and 5
-downsample by FPS (ops/cuda_fps.py). Features are (B, N, C, 3). Under
+downsample by FPS (ops/cuda_fps.py fps_subsample_with_features, the FPS
+kernel on the card). Features are (B, N, C, 3). Under
 autograd the graph and the FPS picks are built from detached inputs, as JAX's
 stop_gradient does: indices carry no gradient; the gather of the sampled
 points' features stays differentiable.
@@ -41,7 +42,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.cuda_fps import fps_auto
+from ..ops.cuda_fps import fps_subsample_with_features
 from ..ops.cuda_knn import knn_auto
 from ..ops.knn import gather_neighbors
 from .cuda_attention import (
@@ -142,7 +143,6 @@ class VecDGCNNAttn(nn.Module):
         (center (B, 1, 3), scale (B,), z_so3 (B, C, 3), z_inv (B, C)), or
         without center_pred (scale, z_so3, z_inv); z_so3 is (B, 3, 3) with
         z_so3_as_Omtx."""
-        B = x.shape[0]
         if self.pallas_attention:
             layer0, edge_mean, edge_attention = (
                 fused_layer0_edge_mean, fused_edge_mean, fused_edge_attention)
@@ -153,9 +153,8 @@ class VecDGCNNAttn(nn.Module):
         src_xyz, src_f = x, x[:, :, None, :]
         for i in range(self.num_layers):
             if i in self.down_sample:
-                n_new = src_xyz.shape[1] // self.down_sample[i]
-                dst_xyz, fidx = fps_auto(src_xyz.detach(), n_new)
-                dst_f = src_f[torch.arange(B, device=x.device)[:, None], fidx]
+                dst_xyz, dst_f, _ = fps_subsample_with_features(
+                    src_xyz.detach(), src_f, self.down_sample[i])
             else:
                 dst_xyz, dst_f = src_xyz, src_f
             if i == 0 and first_knn_idx is not None:

@@ -72,3 +72,16 @@ def fps_auto(points: torch.Tensor, k: int, mask: torch.Tensor | None = None,
     ).long()
     sampled = torch.gather(points, 1, idx[..., None].expand(B, k, 3))
     return sampled, idx
+
+
+def fps_subsample_with_features(points: torch.Tensor, features: torch.Tensor,
+                                factor: int):
+    """The encoder's down-sampling: FPS of (B, N, 3) points down to
+    N // factor by `fps_auto` (the kernel on a CUDA tensor, raising if it
+    cannot run; `farthest_point_sampling` on a CPU one), and (B, N, ...)
+    features gathered at the same indices. Returns (sampled (B, k, 3),
+    features (B, k, ...), idx (B, k) int64)."""
+    B, N, _ = points.shape
+    sampled, idx = fps_auto(points, N // factor)
+    rows = torch.arange(B, device=points.device)[:, None]
+    return sampled, features[rows, idx], idx

@@ -49,3 +49,13 @@ def farthest_point_sampling(
         idx[:, i + 1] = torch.argmax(min_d, dim=-1)
     sampled = torch.gather(points, 1, idx[..., None].expand(B, k, 3))
     return sampled, idx
+
+
+def __getattr__(name):
+    # fps_subsample_with_features, the encoder's down-sampling, has JAX's
+    # place here but lives beside the FPS kernel's dispatch in
+    # ops/cuda_fps.py, which imports this module
+    if name == "fps_subsample_with_features":
+        from .cuda_fps import fps_subsample_with_features
+        return fps_subsample_with_features
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -2,15 +2,16 @@
 run directory.
 
 Counterpart of livingscenes_tpu/train/config.py. The port carries its own
-reader for the subset of YAML that configs/*.yaml use (PyYAML is not a
-dependency): block mappings nested by indentation, `#` comments, plain,
-single- and double-quoted scalars, flow lists `[a, b, "c"]` of scalars, and
-empty values (null). Plain scalars resolve as PyYAML's safe loader resolves
+reader for the subset of YAML that configs/*.yaml and PyYAML's safe_dump of
+a config use (PyYAML is not a dependency): block mappings nested by
+indentation, `#` comments, plain, single- and double-quoted scalars, flow
+lists `[a, b, "c"]` and block sequences (`- a` lines, indented or not under
+their key) of scalars, and empty values (null). Plain scalars resolve as PyYAML's safe loader resolves
 them (YAML 1.1): null, the boolean words, decimal integers, floats with a
 dot or `.inf` / `.nan`; anything else is a string. What the subset lacks
-(block sequences, flow mappings, anchors, multi-line scalars, tabs, octal
-or sexagesimal numbers, ...) raises ValueError rather than reading
-differently.
+(sequences of collections, flow mappings, anchors, multi-line scalars,
+tabs, octal or sexagesimal numbers, ...) raises ValueError rather than
+reading differently.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import shutil
 from typing import Any, Dict, List, Optional
 
 _NULL = {"", "~", "null", "Null", "NULL"}
+_ITEM = object()  # the key of a block sequence's `- value` row
 _TRUE = {"yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"}
 _FALSE = {"no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF"}
 _INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)$")
@@ -149,7 +151,8 @@ def parse_yaml(text: str):
         if body.startswith("\t") or "\t" in line[:len(line) - len(body)]:
             raise ValueError(f"line {number}: tabs in indentation")
         if body.startswith("- ") or body == "-":
-            raise ValueError(f"line {number}: block sequences are not supported")
+            rows.append((len(line) - len(body), _ITEM, body[1:].strip(), number))
+            continue
         key, sep, value = body.partition(":")
         if not sep or (value and not value.startswith(" ")):
             raise ValueError(f"line {number}: expected 'key: value': {raw!r}")
@@ -169,17 +172,32 @@ def _mapping(rows, pos: int, indent: int):
     out: Dict[str, Any] = {}
     while pos < len(rows) and rows[pos][0] == indent:
         _, key, value, number = rows[pos]
+        if key is _ITEM:
+            raise ValueError(f"line {number}: a sequence item where a key belongs")
         if key in out:
             raise ValueError(f"line {number}: duplicate key {key!r}")
         pos += 1
         if value:
             out[key] = parse_scalar(value)
+        elif pos < len(rows) and rows[pos][1] is _ITEM and rows[pos][0] >= indent:
+            out[key], pos = _sequence(rows, pos, rows[pos][0])
         elif pos < len(rows) and rows[pos][0] > indent:
             out[key], pos = _mapping(rows, pos, rows[pos][0])
         else:
             out[key] = None
     if pos < len(rows) and rows[pos][0] > indent:
         raise ValueError(f"line {rows[pos][3]}: bad indentation")
+    return out, pos
+
+
+def _sequence(rows, pos: int, indent: int):
+    out: List[Any] = []
+    while pos < len(rows) and rows[pos][0] == indent and rows[pos][1] is _ITEM:
+        _, _, value, number = rows[pos]
+        if value.endswith(":"):
+            raise ValueError(f"line {number}: sequences of mappings are not supported")
+        out.append(parse_scalar(value))
+        pos += 1
     return out, pos
 
 
@@ -262,6 +280,14 @@ def apply_overrides(cfg: Dict, overrides: List[str]) -> Dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = parse_scalar(raw)
     return cfg
+
+
+def load_run_config(log_dir: str) -> Dict:
+    """The resolved config of a run directory, as prepare_log_dir (this
+    package's or the JAX package's) wrote it: files_backup/
+    resolved_config.yaml."""
+    with open(os.path.join(log_dir, "files_backup", "resolved_config.yaml")) as f:
+        return parse_yaml(f.read())
 
 
 def cfg_with_default(cfg: Dict, key_list: List[str], default: Any) -> Any:

@@ -110,7 +110,7 @@ def test_overrides_match_jax():
 
 
 @pytest.mark.parametrize("text", [
-    "a:\n  - 1\n  - 2\n",          # block sequence
+    "a:\n  - b: 1\n",              # block sequence of mappings
     "a: &x 1\nb: *x\n",            # anchors
     "a: {b: 1}\n",                 # flow mapping
     "a: [1, [2]]\n",               # nested flow list

@@ -6,11 +6,12 @@ There is no card and no nvcc where these tests run, so the kernels' own code
 stand-in for the CUDA runtime (CUDA_RUNTIME_STAND_IN below, written out as
 the `cuda_runtime.h` the sources include: blocks one after another, a
 block's threads as fibers run in turns between barriers, barriers for
-__syncthreads and the warp shuffles, a check of every plain store for a
-race with another thread of the block, dynamic shared memory poisoned
-with NaN; the warp reductions, cp.async and its waits; cudaLaunchKernelEx with a cluster dimension, whose
+__syncthreads and the warp shuffles, a check of every store and of every
+load from shared memory (from device memory too in a cluster launch) for
+a race with another thread of the block or of its cluster, dynamic shared
+memory poisoned with NaN; the warp reductions, cp.async and its waits; cudaLaunchKernelEx with a cluster dimension, whose
 blocks run at the same time and share cluster.sync()). Only the launches
-`kernel<<<grid, block, shared, stream>>>(...)` and the `extern __shared__`
+`kernel<<<grid, block, shared, stream>>>(...)` and the `__shared__`
 declarations are rewritten; atomicAdd and atomicMax are compare-and-swap
 loops. The port's real
 wrappers then call the emulated library on CPU tensors, so their argument
@@ -68,9 +69,11 @@ CUDA_RUNTIME_STAND_IN = r'''// A stand-in for <cuda_runtime.h> that lets a host 
 // threads are fibers that the launching OS thread runs in turns, each
 // until it meets a barrier (a thread that spins on another's write without
 // a barrier never lets it run). They never overlap, so a plain += where
-// the kernel needs an atomic loses no update here: the race check below
-// names it instead, as it names any two plain stores to one word by two
-// threads of a block that no barrier orders. atomicAdd on a float is a
+// the kernel needs an atomic loses no update here, and a load of another
+// thread's store that lacks its barrier may see the value all the same:
+// the race check below names both, as it names any two accesses to one
+// word by two threads of a block (or two blocks of a cluster) that no
+// barrier orders, one of them a store. atomicAdd on a float is a
 // compare-and-swap loop on a std::atomic_ref (on a float4 four of them),
 // on an unsigned a fetch_add;
 // atomicMax on an unsigned a compare-and-swap loop;
@@ -91,8 +94,12 @@ CUDA_RUNTIME_STAND_IN = r'''// A stand-in for <cuda_runtime.h> that lets a host 
 #include <cstring>
 #include <functional>
 #include <memory>
-#include <unordered_map>
 #include <vector>
+
+// Everything below but the sources' own entry points is internal to the
+// library: its calls and variables need no indirection (the hooks run for
+// every load and store).
+#pragma GCC visibility push(hidden)
 
 struct dim3 {
   unsigned x, y, z;
@@ -120,7 +127,12 @@ inline float2 make_float2(float x, float y) { return float2{x, y}; }
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorRace = 999 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorNotSupported = 801,
+  cudaErrorRace = 999
+};
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, int, int) {
@@ -132,30 +144,6 @@ using std::min;
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
-inline float atomicAdd(float* address, float v) {
-  std::atomic_ref<float> ref(*address);
-  float old = ref.load(std::memory_order_relaxed);
-  while (!ref.compare_exchange_weak(old, old + v, std::memory_order_relaxed)) {
-  }
-  return old;
-}
-// sm_90's atomicAdd on a float4 in global memory (one vector
-// red.global.add.v4.f32): here four float atomics, each whole.
-inline float4 atomicAdd(float4* address, float4 v) {
-  float* p = reinterpret_cast<float*>(address);
-  return make_float4(atomicAdd(p, v.x), atomicAdd(p + 1, v.y),
-                     atomicAdd(p + 2, v.z), atomicAdd(p + 3, v.w));
-}
-inline unsigned atomicAdd(unsigned* address, unsigned v) {
-  return std::atomic_ref<unsigned>(*address).fetch_add(v);
-}
-inline unsigned atomicMax(unsigned* address, unsigned v) {
-  std::atomic_ref<unsigned> ref(*address);
-  unsigned old = ref.load();
-  while (old < v && !ref.compare_exchange_weak(old, v)) {
-  }
-  return old;
-}
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 
 #ifndef __x86_64__
@@ -177,13 +165,32 @@ struct Barrier {
   unsigned phase = 0;
 };
 
+// One access to a 4-byte word, for the race check below: by thread
+// `thread` - 1 (0: none) of the cluster's block `rank`, at these phases of
+// the block's barrier, the cluster's and the thread's warp's.
+enum Kind : uint8_t { kPlain, kVolatile, kAtomic };
+struct Access {
+  uint16_t thread;
+  uint8_t rank;
+  Kind kind;
+  unsigned block_phase, cluster_phase, warp_phase;
+};
+// A word's last store (plain or atomic) and its last two readers, two
+// different threads: a store after loads by several threads meets at
+// least one load that is not its own.
+struct Word {
+  Access store, load, other_load;
+};
+
 // One block of the running cluster: its barrier, its warps' barriers and
-// shuffle slots, its dynamic shared memory.
+// shuffle slots, its dynamic shared memory and that memory's words.
 struct Block {
   std::unique_ptr<Barrier> barrier;
   std::vector<std::unique_ptr<Barrier>> warps;
   std::vector<uint64_t> slots;
+  std::vector<Barrier*> warp_barriers;  // the warps' barriers, for the race check
   float* shared = nullptr;
+  Word* words = nullptr;
 };
 
 inline dim3 thread_idx, block_idx;
@@ -191,6 +198,7 @@ inline unsigned block_rank = 0;  // within the cluster
 inline Block* block = nullptr;
 inline float* dynamic_shared = nullptr;
 inline dim3 grid_dim, block_dim;
+inline size_t shared_span = 0;  // the launch's dynamic shared bytes, whole words
 inline unsigned cluster_size = 1;
 inline std::vector<Block> cluster_blocks;
 inline std::unique_ptr<Barrier> cluster_barrier;
@@ -278,47 +286,214 @@ CUDA_EMULATION_UNTRACKED inline void fiber_entry() {
   std::abort();
 }
 
-// The race check. The sources are built with -fsanitize=thread, which
-// makes the compiler call a hook before every plain store, and linked
-// without that sanitizer's runtime: the hooks are below. Two plain stores
-// to one 4-byte word by two threads of a block with no barrier between
-// them (both at the same phase of the block's and the cluster's barrier
-// and, in one warp, of the warp's) are a race on the card, where the
-// threads run at the same time: one store may be lost, as in a sum made by
-// += where it needs an atomic. Atomics are not plain
-// stores; a thread's own stack is not watched; stores of different blocks
-// are not compared (here they run in turn and share their shared memory).
-// A launch's first races are printed, and cudaGetLastError() then returns
-// cudaErrorRace.
-struct Store {
-  const Block* blk;
-  unsigned bx, by, thread, block_phase, cluster_phase, warp_phase;
+// The race check. The sources are built with -fsanitize=thread and
+// --param=tsan-distinguish-volatile=1, which make the compiler call a hook
+// before every plain load and store and before every volatile one, and
+// are linked without that sanitizer's runtime: the hooks are below. Two
+// accesses to one 4-byte word race when one of them is a store and no
+// barrier orders them: two threads of a block at the same phase of the
+// block's barrier and of the cluster's (in one warp, also of the warp's),
+// or two blocks of one cluster at the same phase of the cluster's barrier
+// (they run at the same time on the card as here). On the card the
+// threads run at the same time: a store may be lost (a sum made by +=
+// where it needs an atomic), a load may see the word before or after
+// another thread's store (a read of a tile before its barrier), a store
+// may land before another thread's load (a double buffer refilled too
+// early). Here the fibers run in turns, so the check goes by the phases,
+// not by what the values came out as:
+//   - a store meets the word's last store and its last two loads by other
+//     threads; a load meets its last store;
+//   - atomics are not plain stores: two atomics never race, an atomic and
+//     a plain load or store do;
+//   - a volatile load (`*(volatile T*)p`) that meets only atomics is an
+//     intended relaxed read and no race. The sources read so only a
+//     monotone bound that other threads raise by atomicMax (pair_scan.cuh's
+//     block threshold): any value the word ever holds is backed by a lane's
+//     own entries, and a stale one only prunes less, so the result does
+//     not depend on which value the load sees. A volatile load that meets
+//     a plain store races like any other.
+// Watched: all of dynamic and static shared memory; stores and atomics
+// anywhere but a thread's own stack; loads of device memory only in a
+// cluster launch (where blocks exchange data through it; loads of device
+// memory in other launches would cost a lookup for each read of an input
+// and can meet only the stores of their own block). Blocks that are not in
+// one cluster are not compared: here they run in turn, and on the card a
+// fence and a counter order what they exchange. A launch's first races are
+// printed, and cudaGetLastError() then returns cudaErrorRace.
+// The records of device memory: an open-addressing table by word address
+// (linear probing, doubled at half full); a slot holds a word of this
+// launch when its `launch` is the launch's count, so nothing is cleared.
+struct DeviceWords {
+  uintptr_t* keys = nullptr;
+  unsigned* launch = nullptr;
+  Word* words = nullptr;
+  size_t mask = 0, used = 0;
 };
-inline std::unordered_map<uintptr_t, Store> stores;  // by word, this launch
-inline bool watching = false, in_hook = false;
-inline unsigned races = 0;
+inline DeviceWords device_words;
+// A static __shared__ array (one per process here, one per block on the
+// card) and its words.
+struct StaticShared {
+  uintptr_t base, bytes;
+  Word* words;
+};
+constexpr unsigned kMaxStaticShared = 64;
+inline StaticShared static_shared_arrays[kMaxStaticShared];
+inline unsigned static_shared_count = 0, launch_count = 0;
+// The arrays that the running launch has declared, their words cleared at
+// the first declaration, and the span from the lowest of them to the end
+// of the highest: a kernel has a few, and one compare tells device memory
+// apart from all of them.
+inline StaticShared* launch_arrays[kMaxStaticShared];
+inline unsigned launch_array_count = 0;
+inline uintptr_t launch_arrays_lo = 0, launch_arrays_hi = 0;
+inline bool watching = false;
+inline unsigned races = 0, refused = 0;
+// The running fiber's stack and barriers, as plain pointers: the hooks
+// below call no instrumented code (the standard library's is), so they
+// never run again inside themselves.
+inline uintptr_t stack_now = 0;
+inline Barrier *block_barrier_now = nullptr, *cluster_barrier_now = nullptr;
+inline Barrier* const* warp_barriers_now = nullptr;
 
-CUDA_EMULATION_UNTRACKED inline void on_store(const void* p, size_t n) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  if (!watching || in_hook || a - reinterpret_cast<uintptr_t>(stacks[current]) < kFiberStack)
-    return;
-  in_hook = true;  // the map's own code is instrumented too
-  const unsigned t = thread_idx.x;
-  const Store s{block, block_idx.x, block_idx.y, t, block->barrier->phase,
-                cluster_barrier->phase, block->warps[t / 32]->phase};
-  for (uintptr_t w = a & ~uintptr_t(3); w < a + n; w += 4) {
-    auto [it, fresh] = stores.try_emplace(w, s);
-    const Store& o = it->second;
-    if (!fresh && o.thread != t && o.blk == s.blk && o.bx == s.bx && o.by == s.by &&
-        o.block_phase == s.block_phase && o.cluster_phase == s.cluster_phase &&
-        (o.thread / 32 != t / 32 || o.warp_phase == s.warp_phase) && races++ < 4)
-      std::fprintf(stderr,
-                   "cuda_emulation: race: threads %u and %u of block (%u, %u) "
-                   "store to %p with no barrier between\n",
-                   o.thread, t, s.bx, s.by, reinterpret_cast<void*>(w));
-    it->second = s;
+// Before the first use of a static __shared__ array (rewrite_for_host puts
+// a call after each declaration). Its blocks would share it in a cluster
+// launch here: such a launch is refused.
+CUDA_EMULATION_UNTRACKED inline void static_shared(const void* p, size_t bytes) {
+  if (cluster_size > 1 && !refused++)
+    std::fprintf(stderr,
+                 "cuda_emulation: a cluster launch of a kernel with static "
+                 "__shared__ memory, which its blocks would share here\n");
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p), base = a & ~uintptr_t(3);
+  for (unsigned i = 0; i < launch_array_count; ++i)
+    if (launch_arrays[i]->base == base) return;
+  StaticShared* s = nullptr;
+  for (unsigned i = 0; i < static_shared_count && !s; ++i)
+    if (static_shared_arrays[i].base == base) s = &static_shared_arrays[i];
+  if (!s) {
+    if (static_shared_count == kMaxStaticShared) std::abort();
+    const uintptr_t span = ((a + bytes + 3) & ~uintptr_t(3)) - base;
+    s = &static_shared_arrays[static_shared_count++];
+    *s = {base, span, static_cast<Word*>(std::malloc(span / 4 * sizeof(Word)))};
   }
-  in_hook = false;
+  std::memset(static_cast<void*>(s->words), 0, s->bytes / 4 * sizeof(Word));
+  launch_arrays_lo = launch_array_count ? std::min(launch_arrays_lo, base) : base;
+  launch_arrays_hi = std::max(launch_arrays_hi, base + s->bytes);
+  launch_arrays[launch_array_count++] = s;
+}
+
+// The records of shared memory from the word at w on, or null outside it.
+CUDA_EMULATION_UNTRACKED inline Word* shared_words(uintptr_t w) {
+  const uintptr_t dyn = reinterpret_cast<uintptr_t>(block->shared);
+  if (w - dyn < shared_span) return &block->words[(w - dyn) / 4];
+  if (w - launch_arrays_lo >= launch_arrays_hi - launch_arrays_lo) return nullptr;
+  for (unsigned i = 0; i < launch_array_count; ++i) {
+    const StaticShared& s = *launch_arrays[i];
+    if (w - s.base < s.bytes) return &s.words[(w - s.base) / 4];
+  }
+  return nullptr;
+}
+
+// Whether o, an earlier access, and s may happen at the same time on the
+// card.
+CUDA_EMULATION_UNTRACKED inline bool concurrent(const Access& o, const Access& s) {
+  if (!o.thread || o.cluster_phase != s.cluster_phase) return false;
+  if (o.rank != s.rank) return true;
+  return o.thread != s.thread && o.block_phase == s.block_phase &&
+         ((o.thread - 1) / 32 != (s.thread - 1) / 32 || o.warp_phase == s.warp_phase);
+}
+
+CUDA_EMULATION_UNTRACKED inline void report(const char* what, const Access& o,
+                                            const Access& s, uintptr_t w) {
+  if (races++ >= 4) return;
+  const unsigned bx = block_idx.x, by = block_idx.y;
+  if (o.rank == s.rank)
+    std::fprintf(stderr,
+                 "cuda_emulation: race: %s: threads %u and %u of block (%u, %u), "
+                 "word %p, with no barrier between\n",
+                 what, o.thread - 1, s.thread - 1, bx, by, reinterpret_cast<void*>(w));
+  else
+    std::fprintf(stderr,
+                 "cuda_emulation: race: %s: thread %u of block (%u, %u) and thread %u "
+                 "of block (%u, %u) of one cluster, word %p, with no cluster barrier "
+                 "between\n",
+                 what, o.thread - 1, bx - s.rank + o.rank, by, s.thread - 1, bx, by,
+                 reinterpret_cast<void*>(w));
+}
+
+CUDA_EMULATION_UNTRACKED inline size_t device_slot(const DeviceWords& t, uintptr_t w) {
+  size_t i = ((w >> 2) * 0x9E3779B97F4A7C15ull >> 17) & t.mask;
+  while (t.launch[i] == launch_count && t.keys[i] != w) i = (i + 1) & t.mask;
+  return i;
+}
+
+// The record of the device-memory word at w, a fresh one at its first
+// access in the launch.
+CUDA_EMULATION_UNTRACKED inline Word* device_word(uintptr_t w) {
+  DeviceWords& t = device_words;
+  if (2 * (t.used + 1) > t.mask + 1) {
+    DeviceWords g;
+    g.mask = t.mask ? 2 * t.mask + 1 : (size_t(1) << 16) - 1;
+    g.keys = static_cast<uintptr_t*>(std::malloc((g.mask + 1) * sizeof(uintptr_t)));
+    g.launch = static_cast<unsigned*>(std::calloc(g.mask + 1, sizeof(unsigned)));
+    g.words = static_cast<Word*>(std::malloc((g.mask + 1) * sizeof(Word)));
+    if (!g.keys || !g.launch || !g.words) std::abort();
+    for (size_t i = 0; t.mask && i <= t.mask; ++i)
+      if (t.launch[i] == launch_count) {
+        const size_t j = device_slot(g, t.keys[i]);
+        g.keys[j] = t.keys[i];
+        g.launch[j] = launch_count;
+        g.words[j] = t.words[i];
+        ++g.used;
+      }
+    std::free(t.keys);
+    std::free(t.launch);
+    std::free(t.words);
+    t = g;
+  }
+  const size_t i = device_slot(t, w);
+  if (t.launch[i] != launch_count) {
+    t.keys[i] = w;
+    t.launch[i] = launch_count;
+    t.words[i] = Word{};
+    ++t.used;
+  }
+  return &t.words[i];
+}
+
+// An access of n bytes at p by the running thread: a store (plain or
+// atomic) or a load (plain or volatile).
+CUDA_EMULATION_UNTRACKED inline void on_access(const void* p, size_t n, Kind kind,
+                                               bool store) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (!watching || !n || a - stack_now < kFiberStack) return;
+  // an access lies in one array: shared memory or device memory
+  const uintptr_t w0 = a & ~uintptr_t(3);
+  Word* const words = shared_words(w0);
+  if (!words && !store && cluster_size == 1) return;
+  const unsigned t = thread_idx.x;
+  const Access s{uint16_t(t + 1), uint8_t(block_rank), kind, block_barrier_now->phase,
+                 cluster_barrier_now->phase, warp_barriers_now[t / 32]->phase};
+  for (uintptr_t w = w0; w < a + n; w += 4) {
+    Word* const r = words ? words + (w - w0) / 4 : device_word(w);
+    if (store) {
+      if (concurrent(r->store, s) && (kind != kAtomic || r->store.kind != kAtomic))
+        report(kind == kAtomic || r->store.kind == kAtomic ? "an atomic and a store"
+                                                           : "two stores",
+               r->store, s, w);
+      if (concurrent(r->load, s) && (kind != kAtomic || r->load.kind == kPlain))
+        report("a load, then another thread's store", r->load, s, w);
+      if (concurrent(r->other_load, s) && (kind != kAtomic || r->other_load.kind == kPlain))
+        report("a load, then another thread's store", r->other_load, s, w);
+      r->store = s;
+    } else {
+      if (concurrent(r->store, s) && (kind == kPlain || r->store.kind != kAtomic))
+        report(r->store.kind == kAtomic ? "an atomic, then a plain load"
+                                        : "a store, then another thread's load",
+               r->store, s, w);
+      if (r->load.thread != s.thread) r->other_load = r->load;
+      r->load = s;
+    }
+  }
 }
 
 // Run `thread_main` as thread t of block t / threads of the cluster, for
@@ -357,6 +532,10 @@ CUDA_EMULATION_UNTRACKED inline void run_threads(size_t n, unsigned threads,
       block_rank = f.rank;
       block = &cluster_blocks[f.rank];
       dynamic_shared = block->shared;
+      stack_now = reinterpret_cast<uintptr_t>(stacks[i]);
+      block_barrier_now = block->barrier.get();
+      warp_barriers_now = block->warp_barriers.data();
+      cluster_barrier_now = cluster_barrier.get();
       watching = true;
       switch_context(scheduler, f.ctx);
       watching = false;
@@ -384,22 +563,29 @@ CUDA_EMULATION_UNTRACKED inline void enter_block(unsigned bx, unsigned by) {
 // one cluster run at the same time.
 inline void launch(dim3 grid, dim3 block_shape, size_t shared_bytes,
                    const std::function<void()>& body, unsigned cluster = 1) {
-  stores.clear();
+  device_words.used = 0;
+  ++launch_count;
+  launch_array_count = 0;
+  launch_arrays_lo = launch_arrays_hi = 0;
   grid_dim = grid;
   block_dim = block_shape;
   cluster_size = cluster;
+  shared_span = (shared_bytes + 3) & ~size_t(3);
   const int threads = block_shape.x;
   const int warps = (threads + 31) / 32;
   cluster_blocks.clear();
   cluster_blocks.resize(cluster);
   for (Block& blk : cluster_blocks) {
     blk.barrier = std::make_unique<Barrier>(threads);
-    for (int w = 0; w < warps; ++w)
+    for (int w = 0; w < warps; ++w) {
       blk.warps.push_back(std::make_unique<Barrier>(std::min(32, threads - 32 * w)));
+      blk.warp_barriers.push_back(blk.warps.back().get());
+    }
     blk.slots.assign(warps * 32, 0);
     blk.shared = static_cast<float*>(
         std::aligned_alloc(64, (shared_bytes / 64 + 2) * 64));
     poison(blk.shared, shared_bytes);
+    blk.words = static_cast<Word*>(std::calloc(shared_span / 4 + 1, sizeof(Word)));
   }
   cluster_barrier = std::make_unique<Barrier>(threads * cluster);
   const std::function<void()> thread_main = [&] {
@@ -413,13 +599,16 @@ inline void launch(dim3 grid, dim3 block_shape, size_t shared_bytes,
       }
   };
   run_threads(size_t(threads) * cluster, threads, thread_main);
-  for (Block& blk : cluster_blocks) std::free(blk.shared);
+  for (Block& blk : cluster_blocks) {
+    std::free(blk.shared);
+    std::free(blk.words);
+  }
   cluster_blocks.clear();
 }
 
 // Every lane's v folded with `op` over the warp's lanes, for each lane.
 template <class T, class Op>
-inline T warp_reduce(T v, Op op) {
+CUDA_EMULATION_UNTRACKED inline T warp_reduce(T v, Op op) {
   static_assert(sizeof(T) <= sizeof(uint64_t));
   const int t = thread_idx.x, w = t / 32;
   const int lanes = std::min(32, (int)block_dim.x - 32 * w);
@@ -439,7 +628,7 @@ inline T warp_reduce(T v, Op op) {
 }
 
 template <class T>
-inline T exchange(T v, int source_lane) {
+CUDA_EMULATION_UNTRACKED inline T exchange(T v, int source_lane) {
   static_assert(sizeof(T) <= sizeof(uint64_t));
   const int t = thread_idx.x, w = t / 32;
   uint64_t raw = 0;
@@ -458,30 +647,82 @@ inline T exchange(T v, int source_lane) {
 }  // namespace cuda_emulation
 
 inline cudaError_t cudaGetLastError() {
-  if (!cuda_emulation::races) return cudaSuccess;
-  cuda_emulation::races = 0;
-  return cudaErrorRace;
+  const unsigned races = cuda_emulation::races, refused = cuda_emulation::refused;
+  cuda_emulation::races = cuda_emulation::refused = 0;
+  return refused ? cudaErrorNotSupported : races ? cudaErrorRace : cudaSuccess;
 }
 
-// The hooks that -fsanitize=thread calls: stores go to the race check,
-// loads to nothing, atomics do what they stand for.
+// Atomics: a plain read-modify-write here (the fibers never overlap), and
+// for the race check an atomic store.
+inline float atomicAdd(float* address, float v) {
+  cuda_emulation::on_access(address, sizeof *address, cuda_emulation::kAtomic, true);
+  std::atomic_ref<float> ref(*address);
+  float old = ref.load(std::memory_order_relaxed);
+  while (!ref.compare_exchange_weak(old, old + v, std::memory_order_relaxed)) {
+  }
+  return old;
+}
+// sm_90's atomicAdd on a float4 in global memory (one vector
+// red.global.add.v4.f32): here four float atomics, each whole.
+inline float4 atomicAdd(float4* address, float4 v) {
+  float* p = reinterpret_cast<float*>(address);
+  return make_float4(atomicAdd(p, v.x), atomicAdd(p + 1, v.y),
+                     atomicAdd(p + 2, v.z), atomicAdd(p + 3, v.w));
+}
+inline unsigned atomicAdd(unsigned* address, unsigned v) {
+  cuda_emulation::on_access(address, sizeof *address, cuda_emulation::kAtomic, true);
+  return std::atomic_ref<unsigned>(*address).fetch_add(v);
+}
+inline unsigned atomicMax(unsigned* address, unsigned v) {
+  cuda_emulation::on_access(address, sizeof *address, cuda_emulation::kAtomic, true);
+  std::atomic_ref<unsigned> ref(*address);
+  unsigned old = ref.load();
+  while (old < v && !ref.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
+
+// The hooks that -fsanitize=thread calls: loads and stores, plain and
+// volatile, go to the race check; atomics do what they stand for.
 #define CUDA_EMULATION_HOOK extern "C" __attribute__((weak, no_sanitize_thread))
 CUDA_EMULATION_HOOK void __tsan_init() {}
 CUDA_EMULATION_HOOK void __tsan_func_entry(void*) {}
 CUDA_EMULATION_HOOK void __tsan_func_exit() {}
-CUDA_EMULATION_HOOK void __tsan_read1(void*) {}
-CUDA_EMULATION_HOOK void __tsan_read2(void*) {}
-CUDA_EMULATION_HOOK void __tsan_read4(void*) {}
-CUDA_EMULATION_HOOK void __tsan_read8(void*) {}
-CUDA_EMULATION_HOOK void __tsan_read16(void*) {}
-CUDA_EMULATION_HOOK void __tsan_read_range(void*, unsigned long) {}
-CUDA_EMULATION_HOOK void __tsan_write1(void* p) { cuda_emulation::on_store(p, 1); }
-CUDA_EMULATION_HOOK void __tsan_write2(void* p) { cuda_emulation::on_store(p, 2); }
-CUDA_EMULATION_HOOK void __tsan_write4(void* p) { cuda_emulation::on_store(p, 4); }
-CUDA_EMULATION_HOOK void __tsan_write8(void* p) { cuda_emulation::on_store(p, 8); }
-CUDA_EMULATION_HOOK void __tsan_write16(void* p) { cuda_emulation::on_store(p, 16); }
+#define CUDA_EMULATION_ACCESS_HOOKS(n)                                          \
+  CUDA_EMULATION_HOOK void __tsan_read##n(void* p) {                           \
+    cuda_emulation::on_access(p, n, cuda_emulation::kPlain, false);             \
+  }                                                                             \
+  CUDA_EMULATION_HOOK void __tsan_write##n(void* p) {                          \
+    cuda_emulation::on_access(p, n, cuda_emulation::kPlain, true);              \
+  }                                                                             \
+  CUDA_EMULATION_HOOK void __tsan_volatile_read##n(void* p) {                  \
+    cuda_emulation::on_access(p, n, cuda_emulation::kVolatile, false);          \
+  }                                                                             \
+  CUDA_EMULATION_HOOK void __tsan_volatile_write##n(void* p) {                 \
+    cuda_emulation::on_access(p, n, cuda_emulation::kPlain, true);              \
+  }                                                                             \
+  CUDA_EMULATION_HOOK void __tsan_unaligned_read##n(void* p) {                 \
+    cuda_emulation::on_access(p, n, cuda_emulation::kPlain, false);             \
+  }                                                                             \
+  CUDA_EMULATION_HOOK void __tsan_unaligned_write##n(void* p) {                \
+    cuda_emulation::on_access(p, n, cuda_emulation::kPlain, true);              \
+  }                                                                             \
+  CUDA_EMULATION_HOOK void __tsan_unaligned_volatile_read##n(void* p) {        \
+    cuda_emulation::on_access(p, n, cuda_emulation::kVolatile, false);          \
+  }                                                                             \
+  CUDA_EMULATION_HOOK void __tsan_unaligned_volatile_write##n(void* p) {       \
+    cuda_emulation::on_access(p, n, cuda_emulation::kPlain, true);              \
+  }
+CUDA_EMULATION_ACCESS_HOOKS(1)
+CUDA_EMULATION_ACCESS_HOOKS(2)
+CUDA_EMULATION_ACCESS_HOOKS(4)
+CUDA_EMULATION_ACCESS_HOOKS(8)
+CUDA_EMULATION_ACCESS_HOOKS(16)
+CUDA_EMULATION_HOOK void __tsan_read_range(void* p, unsigned long n) {
+  cuda_emulation::on_access(p, n, cuda_emulation::kPlain, false);
+}
 CUDA_EMULATION_HOOK void __tsan_write_range(void* p, unsigned long n) {
-  cuda_emulation::on_store(p, n);
+  cuda_emulation::on_access(p, n, cuda_emulation::kPlain, true);
 }
 CUDA_EMULATION_HOOK int __tsan_atomic32_load(const volatile int* a, int) {
   return __atomic_load_n(a, __ATOMIC_SEQ_CST);
@@ -537,11 +778,15 @@ inline float __uint_as_float(unsigned u) {
 }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 // cp.async through the pipeline primitives of <cuda_pipeline.h>: here a
-// copy done at once, with the zero fill of the last `zfill` bytes; commit
-// and wait have nothing left to do. A kernel that reads a buffer before
-// its wait and barrier is not caught.
-inline void __pipeline_memcpy_async(void* dst, const void* src, size_t size,
-                                    size_t zfill = 0) {
+// copy done at once, with the zero fill of the last `zfill` bytes, and for
+// the race check a load and a store by the issuing thread when it issues
+// the copy; commit and wait have nothing left to do. Another thread's read
+// before the barrier is caught; one after the barrier but before the wait
+// is not.
+CUDA_EMULATION_UNTRACKED inline void __pipeline_memcpy_async(void* dst, const void* src,
+                                                             size_t size, size_t zfill = 0) {
+  cuda_emulation::on_access(src, size - zfill, cuda_emulation::kPlain, false);
+  cuda_emulation::on_access(dst, size, cuda_emulation::kPlain, true);
   std::memcpy(dst, src, size - zfill);
   std::memset(static_cast<char*>(dst) + size - zfill, 0, zfill);
 }
@@ -606,6 +851,8 @@ struct cluster_group {
 };
 inline cluster_group this_cluster() { return {}; }
 }  // namespace cooperative_groups
+
+#pragma GCC visibility pop
 '''
 
 
@@ -624,9 +871,13 @@ def _split_args(text):
 
 
 def rewrite_for_host(text):
-    """CUDA launch syntax and dynamic shared memory, as host C++."""
+    """CUDA launch syntax and shared memory, as host C++: dynamic shared
+    memory is the stand-in's block's; a static __shared__ array (a static
+    here) is made known to the race check before its first use."""
     text = re.sub(r"extern __shared__ __align__\(16\) float (\w+)\[\];",
                   r"float* \1 = cuda_emulation::dynamic_shared;", text)
+    text = re.sub(r"(__shared__\s+[\w:]+\s+(\w+)\s*(?:\[[^\]\n]*\]\s*)*;)",
+                  r"\1 cuda_emulation::static_shared(&\2, sizeof \2);", text)
 
     def launch(m):
         grid, block, shared = _split_args(m.group(2))[:3]
@@ -637,9 +888,11 @@ def rewrite_for_host(text):
                   text, flags=re.S)
 
 
-# the compiler's hooks on every plain store, for the stand-in's race check
-# (-Wno-tsan: its note that fences are not checked)
-RACE_CHECK = ["-fsanitize=thread", "-Wno-tsan"]
+# the compiler's hooks on every load and store, the volatile ones apart, for
+# the stand-in's race check, and none on function entry and exit (-Wno-tsan:
+# its note that fences are not checked)
+RACE_CHECK = ["-fsanitize=thread", "--param=tsan-distinguish-volatile=1",
+              "--param=tsan-instrument-func-entry-exit=0", "-Wno-tsan"]
 
 
 def emulated_library():
@@ -738,9 +991,15 @@ def test_rewrite_for_host():
     src = ("extern __shared__ __align__(16) float smem[];\n"
            "k<8><<<dim3(a, b), kT, n * sizeof(float),\n"
            "       static_cast<cudaStream_t>(s)>>>(x, f(y, z));\n"
-           "g<P, CW><<<B, 32 * CW, bytes, st>>>(x);\n")
+           "g<P, CW><<<B, 32 * CW, bytes, st>>>(x);\n"
+           "__align__(16) __shared__ float planes[2][3][kPlane];\n"
+           "__shared__ bool last;\n")
     out = rewrite_for_host(src)
     assert "float* smem = cuda_emulation::dynamic_shared;" in out
+    assert ("__align__(16) __shared__ float planes[2][3][kPlane]; "
+            "cuda_emulation::static_shared(&planes, sizeof planes);") in out
+    assert ("__shared__ bool last; cuda_emulation::static_shared(&last, sizeof last);"
+            in out)
     assert ("cuda_emulation::launch(dim3(a, b), kT, n * sizeof(float), "
             "[&] { k<8>(x, f(y, z)); });") in out
     assert "cuda_emulation::launch(B, 32 * CW, bytes, [&] { g<P, CW>(x); });" in out
@@ -769,22 +1028,31 @@ extern "C" int planted_scatter(const int* idx, const float* vals, float* sums,
 '''
 
 
-def test_stand_in_finds_lost_updates(tmp_path):
-    """The fibers never overlap, so the planted fault (a sum made without
-    atomics) gives the right sum here; the race check must still name it
-    (cudaErrorRace, 999), in every launch, and let the atomic scatter by."""
+def build_planted(tmp_path, source, name):
+    """`source` built for the host against the stand-in, with the race
+    check's flags, into a library under tmp_path; its function `name`."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the kernels for the host")
     (tmp_path / "cuda_runtime.h").write_text(CUDA_RUNTIME_STAND_IN)
-    (tmp_path / "scatter.cpp").write_text(rewrite_for_host(PLANTED_SCATTER))
-    obj, lib = tmp_path / "scatter.o", tmp_path / "libscatter.so"
+    (tmp_path / "cooperative_groups.h").write_text(
+        '#pragma once\n#include "cuda_runtime.h"\n')
+    src, obj = tmp_path / f"{name}.cpp", tmp_path / f"{name}.o"
+    lib = tmp_path / f"lib{name}.so"
+    src.write_text(rewrite_for_host(source))
     for cmd in ([gxx, "-std=c++20", "-O1", "-fPIC", *RACE_CHECK, f"-I{tmp_path}", "-c",
-                 "-o", str(obj), str(tmp_path / "scatter.cpp")],
+                 "-o", str(obj), str(src)],
                 [gxx, "-shared", "-o", str(lib), str(obj)]):
         done = subprocess.run(cmd, capture_output=True, text=True)
         assert done.returncode == 0, done.stderr[-4000:]
-    fn = ctypes.CDLL(str(lib)).planted_scatter
+    return getattr(ctypes.CDLL(str(lib)), name)
+
+
+def test_stand_in_finds_lost_updates(tmp_path):
+    """The fibers never overlap, so the planted fault (a sum made without
+    atomics) gives the right sum here; the race check must still name it
+    (cudaErrorRace, 999), in every launch, and let the atomic scatter by."""
+    fn = build_planted(tmp_path, PLANTED_SCATTER, "planted_scatter")
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
     threads, edges, n_sums = 64, 8, 4
     idx = np.random.default_rng(0).integers(0, n_sums, threads * edges).astype(np.int32)
@@ -795,6 +1063,180 @@ def test_stand_in_finds_lost_updates(tmp_path):
         assert fn(idx.ctypes.data, vals.ctypes.data, sums.ctypes.data,
                   threads, edges, atomic) == rc
         np.testing.assert_array_equal(sums, want)
+
+
+# Races of loads: each kernel with its barrier (`fixed` 1) and without it
+# (0), the fault. 64 threads, two warps; the cluster case two blocks of one
+# cluster. Which of a race's two accesses the check meets first follows
+# from the scheduler's order (forward through the threads in its first
+# round, backward in its second): each kernel is laid out so that the
+# check meets the access its name says.
+PLANTED_RACES = r'''#include <cuda_runtime.h>
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
+// Each thread stores its word of shared memory, then loads its lower
+// neighbour's.
+__global__ void read_after_write(float* out, int fixed) {
+  __shared__ float s[64];
+  const int t = threadIdx.x;
+  s[t] = (float)t;
+  if (fixed) __syncthreads();
+  out[t] = s[(t + 63) % 64];
+}
+
+// Each thread loads its lower neighbour's word, then stores its own: a
+// buffer refilled while other threads still read it.
+__global__ void write_after_read(float* out, int fixed) {
+  __shared__ float s[64];
+  const int t = threadIdx.x;
+  s[t] = (float)t;
+  __syncthreads();
+  const float v = s[(t + 63) % 64];
+  if (fixed) __syncthreads();
+  s[t] = v + 64.0f;
+  __syncthreads();
+  out[t] = s[t];
+}
+
+// Lanes of one warp swap their words through shared memory.
+__global__ void lane_to_lane(float* out, int fixed) {
+  __shared__ float s[64];
+  const int t = threadIdx.x;
+  s[t] = (float)t;
+  if (fixed) __syncwarp();
+  out[t] = s[t ^ 1];
+}
+
+// The two blocks of a cluster swap their rows through device memory.
+__global__ void cluster_exchange(float* buf, float* out, int fixed) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = (int)cluster.block_rank(), t = threadIdx.x, T = blockDim.x;
+  buf[r * T + t] = (float)(r * T + t);
+  if (fixed) cluster.sync();
+  out[r * T + t] = buf[(r ^ 1) * T + t];
+}
+
+// pair_scan.cuh's block threshold: each warp raises it by atomicMax, and
+// every thread reads it with no barrier, volatile (kRelaxed) or plain.
+template <bool kRelaxed>
+__global__ void threshold(const unsigned* vals, unsigned* out) {
+  __shared__ unsigned tt;
+  if (threadIdx.x == 0) tt = 0u;
+  __syncthreads();
+  for (int round = 0; round < 4; ++round) {
+    const unsigned wm =
+        __reduce_max_sync(0xffffffffu, vals[round * blockDim.x + threadIdx.x]);
+    unsigned tb;
+    if (kRelaxed)
+      tb = *reinterpret_cast<volatile unsigned*>(&tt);
+    else
+      tb = tt;
+    if (threadIdx.x % 32 == 0 && wm > tb) atomicMax(&tt, wm);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) *out = tt;
+}
+
+// A cluster kernel with static shared memory, which the stand-in refuses.
+__global__ void cluster_static(float* out, int) {
+  __shared__ float s[64];
+  s[threadIdx.x] = 1.0f;
+  __syncthreads();
+  out[threadIdx.x] = s[threadIdx.x];
+}
+
+extern "C" int planted_race(int which, int fixed, const unsigned* vals,
+                            float* buf, float* out) {
+  if (which == 0) read_after_write<<<1, 64, 0, 0>>>(out, fixed);
+  if (which == 1) write_after_read<<<1, 64, 0, 0>>>(out, fixed);
+  if (which == 2) lane_to_lane<<<1, 64, 0, 0>>>(out, fixed);
+  if (which == 3 || which == 5) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(2);
+    cfg.blockDim = dim3(64);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 2;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err =
+        which == 3 ? cudaLaunchKernelEx(&cfg, cluster_exchange, buf, out, fixed)
+                   : cudaLaunchKernelEx(&cfg, cluster_static, out, fixed);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (which == 4 && fixed)
+    threshold<true><<<1, 64, 0, 0>>>(vals, reinterpret_cast<unsigned*>(out));
+  if (which == 4 && !fixed)
+    threshold<false><<<1, 64, 0, 0>>>(vals, reinterpret_cast<unsigned*>(out));
+  return (int)cudaGetLastError();
+}
+'''
+
+_T = np.arange(128)
+# which kernel, its outputs with the barrier, and what the check reports
+# without it
+PLANTED_CASES = {
+    "read_after_write": (0, (_T[:64] + 63) % 64, "a store, then another thread's load"),
+    "write_after_read": (1, (_T[:64] + 63) % 64 + 64, "a load, then another thread's store"),
+    "lane_to_lane": (2, _T[:64] ^ 1, "a store, then another thread's load"),
+    "cluster_exchange": (3, _T ^ 64, "of one cluster"),
+}
+
+
+@pytest.fixture(scope="module")
+def planted_race(tmp_path_factory):
+    fn = build_planted(tmp_path_factory.mktemp("planted"), PLANTED_RACES, "planted_race")
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    return fn
+
+
+@pytest.mark.parametrize("case", sorted(PLANTED_CASES))
+def test_stand_in_finds_races_of_loads(planted_race, case, capfd):
+    """A load of another thread's store with no barrier between, a store
+    over another thread's load, a swap between lanes with no __syncwarp,
+    and one between the blocks of a cluster through device memory with no
+    cluster.sync(): cudaErrorRace (999) without the barrier and 0 with it,
+    in every launch."""
+    which, want, report = PLANTED_CASES[case]
+    vals = np.zeros(256, np.uint32)
+    for fixed, rc in ((1, 0), (0, 999), (1, 0), (0, 999)):
+        buf, out = np.zeros(128, np.float32), np.zeros(128, np.float32)
+        capfd.readouterr()
+        assert planted_race(which, fixed, vals.ctypes.data, buf.ctypes.data,
+                            out.ctypes.data) == rc
+        err = capfd.readouterr().err
+        if fixed:
+            assert "race" not in err, err
+            np.testing.assert_array_equal(out[:len(want)], want)
+        else:
+            assert report in err, err
+
+
+def test_stand_in_passes_relaxed_threshold(planted_race, capfd):
+    """The block threshold of pair_scan.cuh, read volatile while other
+    warps raise it by atomicMax: no race (0), and the largest value; read
+    plainly instead, the same kernel races with the atomics (999)."""
+    vals = np.random.default_rng(1).integers(1, 1 << 30, 256).astype(np.uint32)
+    for relaxed, rc in ((1, 0), (0, 999), (1, 0), (0, 999)):
+        out = np.zeros(1, np.uint32)
+        capfd.readouterr()
+        assert planted_race(4, relaxed, vals.ctypes.data, None, out.ctypes.data) == rc
+        assert out[0] == vals.max()
+        assert ("an atomic" in capfd.readouterr().err) == (not relaxed)
+
+
+def test_stand_in_refuses_static_shared_in_a_cluster(planted_race, capfd):
+    """Static __shared__ is one array here, which the blocks of a cluster
+    would share: such a launch is refused (cudaErrorNotSupported, 801)."""
+    out = np.zeros(128, np.float32)
+    assert planted_race(5, 0, None, None, out.ctypes.data) == 801
+    assert "static __shared__" in capfd.readouterr().err
+    assert planted_race(3, 1, None, np.zeros(128, np.float32).ctypes.data,
+                        out.ctypes.data) == 0
 
 
 @pytest.mark.parametrize(

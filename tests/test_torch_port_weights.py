@@ -109,11 +109,20 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, and the port's end-to-end demo and
+    simplification profile (scripts/torch_demo_end2end.py,
+    scripts/torch_profile_simplify.py), bring in neither JAX nor PyYAML
+    nor the JAX package."""
+    scripts = [os.path.join(ROOT, "scripts", f"{n}.py")
+               for n in ("torch_demo_end2end", "torch_profile_simplify")]
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "import livingscenes_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"for path in {scripts!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('script', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'yaml', 'livingscenes_tpu')]\n"
         "assert not bad, bad\n"
