@@ -20,6 +20,10 @@ Two refits:
 The JAX package turns the fused path on automatically only on a TPU; here
 it is on for unmasked clouds on every device, so the card and the CPU
 follow the same refit.
+
+While the program trace records (tracing.py), the loop hands it the
+`frozen` flags each iteration starts with and counts the iterations and
+pairs on the host: no launch and no sync more.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import se3
+from .. import se3, tracing
 from .cuda_icp import icp_iteration_stats
 from .knn import pairwise_sqdist
 
@@ -69,7 +73,10 @@ def iterative_closest_point(
     prev_rmse = torch.full((B,), float("inf"), dtype=dtype, device=device)
     frozen = torch.zeros((B,), dtype=torch.bool, device=device)
     q = se3.quat_wxyz_from_matrix(R)
+    frozen_log = tracing.icp_frozen_log()
     for _ in range(max_iterations):
+        if frozen_log is not None:
+            frozen_log.append(frozen)
         x = torch.matmul(src, R.transpose(-1, -2)) + t[:, None, :]
         if fused:
             S, nn_sum, dmin_sum = icp_iteration_stats(
@@ -100,4 +107,7 @@ def iterative_closest_point(
         frozen = frozen | (rel < relative_rmse_thr)
         if early_exit and bool(torch.all(frozen)):
             break
+    if frozen_log is not None:
+        tracing.count("icp.iterations", len(frozen_log))
+        tracing.count("icp.pair_iterations", len(frozen_log) * B)
     return ICPResult(R=R, t=t, rmse=prev_rmse, converged=frozen)

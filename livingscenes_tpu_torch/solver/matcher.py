@@ -15,7 +15,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .. import se3
+from .. import se3, tracing
 from ..ops.sinkhorn import log_optimal_transport
 
 _NEG = -1e30
@@ -69,11 +69,14 @@ def sequential_matcher(
     tgt_mask: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """Greedy cosine-similarity matcher. z_inv_* (S, C) / (T, C), or with a
-    leading scene axis (P, S, C) / (P, T, C) (masks likewise)."""
-    score = torch.matmul(_l2_normalize(z_inv_src), _l2_normalize(z_inv_tgt).transpose(-1, -2))
-    if score.dim() == 3:
-        return _greedy_assign(score, src_mask, tgt_mask)
-    return _greedy_one(score, src_mask, tgt_mask)
+    leading scene axis (P, S, C) / (P, T, C) (masks likewise). Recorded
+    as the span "solver.match" (tracing.py)."""
+    with tracing.span("solver.match", z_inv_src.device):
+        score = torch.matmul(_l2_normalize(z_inv_src),
+                             _l2_normalize(z_inv_tgt).transpose(-1, -2))
+        if score.dim() == 3:
+            return _greedy_assign(score, src_mask, tgt_mask)
+        return _greedy_one(score, src_mask, tgt_mask)
 
 
 def _mutual_check(m0: torch.Tensor, m1: torch.Tensor) -> torch.Tensor:

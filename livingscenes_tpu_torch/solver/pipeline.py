@@ -8,6 +8,12 @@ Counterpart of livingscenes_tpu/solver/pipeline.py
 independent, so every instance of every scene goes through each stage in
 one batch; with a mesh (parallel/sharding.py) each rank runs its share of
 the scenes through the whole program and the outputs are gathered.
+
+While the program trace records (tracing.py), a call is the span
+"pipeline.call", with "pipeline.encode" (holding "pipeline.fps"),
+"solver.match", "solver.register" and "pipeline.recon" inside. fps_auto,
+model.encode, sequential_matcher and solve_pairwise_registration are looked
+up at each call, so that a caller may wrap them.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import se3
+from .. import se3, tracing
 from ..models.shape_prior import transform_codes
 from ..native.bindings import get_lib
 from ..ops.cuda_fps import fps_auto
@@ -105,11 +111,12 @@ def build_scene_pair_pipeline(model, cfg: PipelineConfig = PipelineConfig(),
 
     @grad_mode()
     def pipeline(ref_pc, rescan_pc, ref_mask=None, rescan_mask=None):
-        if mesh is None:
-            return local(ref_pc, rescan_pc, ref_mask, rescan_mask)
-        shards = [None if x is None else shard_batch(x, mesh, axis)
-                  for x in (ref_pc, rescan_pc, ref_mask, rescan_mask)]
-        return gather_batch(local(*shards), mesh, axis)
+        with tracing.span("pipeline.call", model.device):
+            if mesh is None:
+                return local(ref_pc, rescan_pc, ref_mask, rescan_mask)
+            shards = [None if x is None else shard_batch(x, mesh, axis)
+                      for x in (ref_pc, rescan_pc, ref_mask, rescan_mask)]
+            return gather_batch(local(*shards), mesh, axis)
 
     def local(ref_pc, rescan_pc, ref_mask, rescan_mask):
         dev, dtype = model.device, model.dtype
@@ -118,17 +125,19 @@ def build_scene_pair_pipeline(model, cfg: PipelineConfig = PipelineConfig(),
         S, O, N, _ = ref_pc.shape
         flat_ref = ref_pc.reshape(S * O, N, 3)
         flat_res = rescan_pc.reshape(S * O, N, 3)
-        if cfg.encode_fps:
-            # both sides in one batch: one FPS launch over twice the clouds
-            masks = [_flat_mask(m, dev, S * O, N) for m in (ref_mask, rescan_mask)]
-            mask = None if all(m is None for m in masks) else torch.cat([
-                torch.ones((S * O, N), dtype=torch.bool, device=dev) if m is None
-                else m for m in masks])
-            sampled, _ = fps_auto(torch.cat([flat_ref, flat_res]),
-                                  model.config.n_pcl, mask=mask)
-            flat_ref, flat_res = sampled[:S * O], sampled[S * O:]
-        codes_ref = model.encode(flat_ref)
-        codes_res = model.encode(flat_res)
+        with tracing.span("pipeline.encode"):
+            if cfg.encode_fps:
+                # both sides in one batch: one FPS launch over twice the clouds
+                masks = [_flat_mask(m, dev, S * O, N) for m in (ref_mask, rescan_mask)]
+                mask = None if all(m is None for m in masks) else torch.cat([
+                    torch.ones((S * O, N), dtype=torch.bool, device=dev) if m is None
+                    else m for m in masks])
+                with tracing.span("pipeline.fps"):
+                    sampled, _ = fps_auto(torch.cat([flat_ref, flat_res]),
+                                          model.config.n_pcl, mask=mask)
+                flat_ref, flat_res = sampled[:S * O], sampled[S * O:]
+            codes_ref = model.encode(flat_ref)
+            codes_res = model.encode(flat_res)
 
         matches = sequential_matcher(
             codes_ref["z_inv"].reshape(S, O, -1),
@@ -148,7 +157,8 @@ def build_scene_pair_pipeline(model, cfg: PipelineConfig = PipelineConfig(),
             "t": t.reshape(S, O, 3, 1),
         }
         if cfg.recon:
-            out.update(_reconstruct(model, cfg, final_merge, c2, R, t, S, O))
+            with tracing.span("pipeline.recon"):
+                out.update(_reconstruct(model, cfg, final_merge, c2, R, t, S, O))
         return out
 
     return pipeline

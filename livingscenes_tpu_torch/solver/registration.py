@@ -18,7 +18,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from .. import se3
+from .. import se3, tracing
 from ..ops.icp import iterative_closest_point
 from ..ops.sinkhorn import sinkhorn_divergence, sinkhorn_yy_term
 
@@ -248,63 +248,70 @@ def solve_pairwise_registration(
     cfg: RegistrationConfig = RegistrationConfig(),
 ):
     """Register (B, N, 3) clouds pc1 -> pc2; returns (R (B, 3, 3),
-    t (B, 3, 1))."""
+    t (B, 3, 1)). Recorded as the span "solver.register", with
+    "register.kabsch", "register.refine", "register.icp" and
+    "register.accept" inside (tracing.py)."""
     if cfg.use_icp and cfg.icp_accept not in ("always", "symch", "sdf"):
         raise ValueError(f"icp_accept={cfg.icp_accept!r}")
-    if codes1 is None:
-        codes1 = model.encode(pc1)
-    if codes2 is None:
-        codes2 = model.encode(pc2)
-    R, t, _ = kabsch_from_codes(codes1, codes2)
+    with tracing.span("solver.register", pc1.device):
+        if codes1 is None:
+            codes1 = model.encode(pc1)
+        if codes2 is None:
+            codes2 = model.encode(pc2)
+        with tracing.span("register.kabsch"):
+            R, t, _ = kabsch_from_codes(codes1, codes2)
 
-    decode = model.decode_sdf
+        decode = model.decode_sdf
 
-    if optim:
-        refine_decode = _bf16_decode(model) if cfg.refine_bf16 else decode
-        # refine toward the frame whose code explains its own cloud better
-        if cfg.direction_pick:
-            with torch.no_grad():
-                err1 = torch.mean(torch.abs(decode(pc1, codes1)), dim=-1)
-                err2 = torch.mean(torch.abs(decode(pc2, codes2)), dim=-1)
-            fwd = err1 >= err2  # True: pc1 -> pc2 against codes2
+        if optim:
+            with tracing.span("register.refine"):
+                refine_decode = _bf16_decode(model) if cfg.refine_bf16 else decode
+                # refine toward the frame whose code explains its own cloud better
+                if cfg.direction_pick:
+                    with torch.no_grad():
+                        err1 = torch.mean(torch.abs(decode(pc1, codes1)), dim=-1)
+                        err2 = torch.mean(torch.abs(decode(pc2, codes2)), dim=-1)
+                    fwd = err1 >= err2  # True: pc1 -> pc2 against codes2
+                else:
+                    fwd = torch.ones(pc1.shape[0], dtype=torch.bool, device=pc1.device)
+                R_bwd, t_bwd, _ = kabsch_from_codes(codes2, codes1)
+
+                def sel(a, b):
+                    return torch.where(fwd.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+                shared = {k: sel(codes2[k], codes1[k]) for k in codes2}
+                R_opt, t_opt, _ = refine_se3(
+                    refine_decode, sel(pc1, pc2), sel(pc2, pc1), shared, sel(R, R_bwd),
+                    sel(t, t_bwd), cfg)
+                # invert where the refinement ran pc2 -> pc1
+                R_inv = R_opt.transpose(-1, -2)
+                R = sel(R_opt, R_inv)
+                t = sel(t_opt, -torch.matmul(R_inv, t_opt))
+
+        if not cfg.use_icp:
+            return R, t
+        with tracing.span("register.icp"):
+            res = iterative_closest_point(
+                pc1, pc2, init_R=R, init_t=t[..., 0],
+                max_iterations=cfg.icp_iterations, fused_stats=cfg.icp_fused,
+            )
+        R_icp, t_icp = res.R, res.t[..., None]
+        if cfg.icp_accept == "always":
+            return R_icp, t_icp
+
+        def move(Rm, tm):
+            return torch.einsum("bij,bnj->bni", Rm, pc1) + tm[..., 0][:, None]
+
+        if cfg.icp_accept == "symch":
+            def proxy(moved):
+                return symmetric_chamfer(moved, pc2)
         else:
-            fwd = torch.ones(pc1.shape[0], dtype=torch.bool, device=pc1.device)
-        R_bwd, t_bwd, _ = kabsch_from_codes(codes2, codes1)
+            def proxy(moved):
+                with torch.no_grad():
+                    return torch.mean(torch.abs(decode(moved, codes2)), dim=-1)
 
-        def sel(a, b):
-            return torch.where(fwd.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
-
-        shared = {k: sel(codes2[k], codes1[k]) for k in codes2}
-        R_opt, t_opt, _ = refine_se3(
-            refine_decode, sel(pc1, pc2), sel(pc2, pc1), shared, sel(R, R_bwd),
-            sel(t, t_bwd), cfg)
-        # invert where the refinement ran pc2 -> pc1
-        R_inv = R_opt.transpose(-1, -2)
-        R = sel(R_opt, R_inv)
-        t = sel(t_opt, -torch.matmul(R_inv, t_opt))
-
-    if not cfg.use_icp:
+        with tracing.span("register.accept"):
+            take = proxy(move(R_icp, t_icp)) < proxy(move(R, t))
+            R = torch.where(take[:, None, None], R_icp, R)
+            t = torch.where(take[:, None, None], t_icp, t)
         return R, t
-    res = iterative_closest_point(
-        pc1, pc2, init_R=R, init_t=t[..., 0],
-        max_iterations=cfg.icp_iterations, fused_stats=cfg.icp_fused,
-    )
-    R_icp, t_icp = res.R, res.t[..., None]
-    if cfg.icp_accept == "always":
-        return R_icp, t_icp
-
-    def move(Rm, tm):
-        return torch.einsum("bij,bnj->bni", Rm, pc1) + tm[..., 0][:, None]
-
-    if cfg.icp_accept == "symch":
-        def proxy(moved):
-            return symmetric_chamfer(moved, pc2)
-    else:
-        def proxy(moved):
-            with torch.no_grad():
-                return torch.mean(torch.abs(decode(moved, codes2)), dim=-1)
-
-    take = proxy(move(R_icp, t_icp)) < proxy(move(R, t))
-    R = torch.where(take[:, None, None], R_icp, R)
-    t = torch.where(take[:, None, None], t_icp, t)
-    return R, t

@@ -10,19 +10,24 @@ Counterpart of livingscenes_tpu/utils/debugging.py in PyTorch's idiom:
 * `checkify_nan` wraps a function so that a non-finite output raises;
 * `assert_finite` logs the non-finite leaves of a nest of tensors;
 * `profile_trace` runs a block under torch.profiler (a chrome trace in a
-  directory) or times it;
-* `device_memory_stats` reads torch.cuda.memory_stats per card;
-* `StepTimer` sums named phases' wall time.
+  directory, with the program trace's spans as profiler ranges and written
+  out beside it) or times it;
+* `device_memory_stats` reads torch.cuda.memory_stats per card.
+
+Named phases are timed by the program trace's spans (tracing.py).
 """
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 import os
 import time
 from typing import Callable, Dict, List
 
 import torch
+
+from .. import tracing
 
 log = logging.getLogger(__name__)
 
@@ -107,8 +112,11 @@ def assert_finite(tree, name: str = "tree") -> List[str]:
 @contextlib.contextmanager
 def profile_trace(log_dir: str | None = None, label: str = "trace"):
     """With a log_dir, the block runs under torch.profiler (CPU, and the
-    card when there is one) and its chrome trace is written to
-    <log_dir>/<label>.json; either way its wall time is logged."""
+    card when there is one) with the program trace recording and each of
+    its spans opened as a profiler range (tracing.recording(ranges=True),
+    after a tracing.reset()); the chrome trace is written to
+    <log_dir>/<label>.json and tracing.snapshot() to
+    <log_dir>/<label>.spans.json. Either way its wall time is logged."""
     t0 = time.perf_counter()
     if log_dir:
         from torch.profiler import ProfilerActivity, profile
@@ -116,10 +124,13 @@ def profile_trace(log_dir: str | None = None, label: str = "trace"):
         activities = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
+        tracing.reset()
+        with tracing.recording(ranges=True), profile(activities=activities) as prof:
             yield
         os.makedirs(log_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(log_dir, f"{label}.json"))
+        with open(os.path.join(log_dir, f"{label}.spans.json"), "w") as f:
+            json.dump(tracing.snapshot(), f)
     else:
         yield
     log.info("[profile] %s: %.3fs", label, time.perf_counter() - t0)
@@ -140,18 +151,3 @@ def device_memory_stats() -> Dict[str, Dict[str, int]]:
         }
     return out
 
-
-class StepTimer:
-    """Named phase timers: `with timer.phase("decode"): ...` adds the
-    block's wall seconds to stats["decode"]."""
-
-    def __init__(self):
-        self.stats: Dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.stats[name] = self.stats.get(name, 0.0) + (time.perf_counter() - t0)

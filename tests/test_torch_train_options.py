@@ -16,7 +16,8 @@ across by params_from_jax:
 - `Trainer.visualize_sample` (its PNG, OBJ, histogram and GIF) and the
   viz renderers, `write_png` byte for byte;
 - `locate_nonfinite_modules` naming a poisoned module, the anomaly mode's
-  report, and the other utils/debugging.py helpers;
+  report, and the other utils/debugging.py helpers (`profile_trace`'s
+  spans file among them);
 - the logger's histogram, mesh and video records.
 """
 import json
@@ -41,6 +42,7 @@ from livingscenes_tpu_torch.models.sim3recon import SIM3Recon, TrainLossConfig
 from livingscenes_tpu_torch.recon.mesh import Mesh as TMesh
 from livingscenes_tpu_torch.train import logger as tlogger
 from livingscenes_tpu_torch.train.trainer import Trainer, TrainerConfig
+from livingscenes_tpu_torch import tracing
 from livingscenes_tpu_torch.utils import debugging as tdebug
 from livingscenes_tpu_torch.utils import viz as tviz
 from test_torch_port_train import TINY, B, batches, to_torch
@@ -377,16 +379,18 @@ def test_debugging_helpers(tmp_path, caplog):
                                    name="grads")
     assert bad == ["b/c"] and "grads/b/c" in caplog.text
     with tdebug.profile_trace(str(tmp_path), label="mm"):
-        torch.randn(64, 64) @ torch.randn(64, 64)
+        for _ in range(2):
+            with tracing.span("a"):
+                torch.randn(64, 64) @ torch.randn(64, 64)
+        with pytest.raises(KeyError):
+            with tracing.span("b"):
+                raise KeyError("x")
     assert json.load(open(tmp_path / "mm.json"))
+    spans = json.load(open(tmp_path / "mm.spans.json"))["spans"]
+    assert [s["name"] for s in spans] == ["a", "a", "b"]
+    assert all(s["host_end_ms"] >= s["host_start_ms"] and s["parent"] is None
+               and s["device_start_ms"] is None for s in spans)
+    assert len({s["call"] for s in spans}) == 3
     with tdebug.profile_trace(None, label="plain"):
         pass
     assert tdebug.device_memory_stats() == {}
-    timer = tdebug.StepTimer()
-    for _ in range(2):
-        with timer.phase("a"):
-            pass
-    with pytest.raises(KeyError):
-        with timer.phase("b"):
-            raise KeyError("x")
-    assert set(timer.stats) == {"a", "b"} and timer.stats["a"] >= 0.0
